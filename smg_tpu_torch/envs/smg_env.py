@@ -1,0 +1,150 @@
+"""The batched SMG environment: reset, observe, geometry, predicates.
+
+Port of the parts of smg_tpu/envs/smg_env.py that the testing-mode act
+step uses, written for B scenes at once: EnvConfig, resolve_catalogs,
+reset, observe (exact segmentation), masked_scene_depth,
+compute_geometry, ik_ok and episode_done. Primitive execution is
+envs/batched.py::execute_batched.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import torch
+
+from smg_tpu_torch.perception import segment as seg_mod
+from smg_tpu_torch.physics import scene as scene_mod
+from smg_tpu_torch.physics import stepper
+from smg_tpu_torch.physics.state import Scene, _Batched
+from smg_tpu_torch.policy import action_geom as ag
+from smg_tpu_torch.policy.arbitrate import ACTION_ETS, ActionChoice
+from smg_tpu_torch.render import ortho
+
+
+@dataclass(frozen=True)
+class EnvConfig:
+    """Setup + algorithm flags (smg_env.py:44-68)."""
+
+    is_cluttered: bool = False
+    is_testing: bool = False
+    is_ets: bool = False
+    is_pe: bool = False
+    is_oo: bool = False
+    method: str = "reinforcement"
+    step_limit: int = 20
+    max_episode_success: int = 10
+    no_change_limit: int = 3
+    settle_steps: int = 250
+    obj_mesh_dir: str = ""
+
+
+def resolve_catalogs(cfg: EnvConfig):
+    """--obj_mesh_dir -> object catalogs (smg_env.py:71-90). Only the
+    procedural catalogs are ported: the datasets/{training,testing}
+    sentinels and "" (is_testing's catalog)."""
+    d = cfg.obj_mesh_dir
+    if d and os.path.isdir(os.path.join(d, "enveloping")):
+        raise NotImplementedError(
+            "--obj_mesh_dir mesh ingest (utils/meshes.py) is not ported yet")
+    base = os.path.basename(os.path.normpath(d)) if d else ""
+    if d and base not in ("training", "testing"):
+        raise FileNotFoundError(
+            f"--obj_mesh_dir {d!r}: no enveloping/ + sucking/ .obj dirs, "
+            "and not a datasets/{training,testing} sentinel")
+    testing = base == "testing" if d else cfg.is_testing
+    return scene_mod.default_catalogs(testing)
+
+
+@dataclass
+class Observation(_Batched):
+    depth_hm: torch.Tensor   # (B, 224, 224)
+    color_hm: torch.Tensor   # (B, 224, 224, 3)
+    seg: seg_mod.Segmentation
+
+
+@dataclass
+class Geometry(_Batched):
+    grasp_position: torch.Tensor    # (B, 3)
+    grasp_angle: torch.Tensor       # (B,)
+    open_distance: torch.Tensor     # (B,)
+    suction_position: torch.Tensor  # (B, 3)
+    suction_angle: torch.Tensor     # (B,)
+
+
+@dataclass
+class StepOutcome(_Batched):
+    suction_success: torch.Tensor   # (B,) {0, 1}
+    grasp_success: torch.Tensor     # (B,) {0, 1}
+    gs_success: torch.Tensor        # (B,) {0, 0.5, 2.5}
+    tip_divergence: torch.Tensor    # (B,) meters
+
+    @property
+    def any_success(self) -> torch.Tensor:
+        return ((self.suction_success > 0) | (self.grasp_success > 0)
+                | (self.gs_success > 0))
+
+
+def reset(gen: torch.Generator, B: int, cfg: EnvConfig, device) -> Scene:
+    """B fresh episode scenes (smg_env.py:130-135)."""
+    return scene_mod.reset_scene(
+        gen, B, device, cfg.is_cluttered, cfg.is_testing, cfg.settle_steps,
+        catalogs=resolve_catalogs(cfg),
+    )
+
+
+def observe(scenes: Scene) -> Observation:
+    """Render + exact segmentation (smg_env.py:138-151)."""
+    depth, ids, color = ortho.render_heightmap(scenes.objects)
+    seg = seg_mod.segment(scenes.objects, ids)
+    return Observation(depth_hm=depth, color_hm=color, seg=seg)
+
+
+def masked_scene_depth(obs: Observation) -> torch.Tensor:
+    """Scene depth zeroed off the object union (smg_env.py:154-158)."""
+    union = obs.seg.masks.any(dim=1)
+    return torch.where(union, obs.depth_hm, torch.zeros_like(obs.depth_hm))
+
+
+def compute_geometry(choice: ActionChoice, obs: Observation,
+                     cfg: EnvConfig) -> Geometry:
+    """PE + OO for the selected targets (smg_env.py:161-193)."""
+    seg = obs.seg
+    depth = obs.depth_hm
+    B, n = seg.valid.shape
+    bidx = torch.arange(B, device=depth.device)
+    g_pos, g_angle, open_d = ag.pe_grasp_geometry(
+        seg.box_corners[bidx, choice.grasp_obj.long()], depth, is_pe=cfg.is_pe)
+    num = seg.number
+    is_ets_act = choice.action == ACTION_ETS
+    slots = torch.arange(n, device=depth.device)
+    oo_valid = seg.valid & ~(
+        (is_ets_act & (num > 2))[:, None]
+        & (slots[None] == choice.grasp_obj[:, None])
+    )
+    s_pos, s_angle = ag.oo_suction_angle(
+        choice.suction_obj, seg.centers, seg.box_corners, oo_valid, depth,
+        is_oo=cfg.is_oo)
+    s_angle = torch.where(is_ets_act & (num == 2), torch.zeros_like(s_angle),
+                          s_angle)
+    return Geometry(grasp_position=g_pos, grasp_angle=g_angle,
+                    open_distance=open_d, suction_position=s_pos,
+                    suction_angle=s_angle)
+
+
+def ik_ok(scenes: Scene) -> torch.Tensor:
+    """Workspace-stability half of the episode health check (smg_env.py:251-258)."""
+    return stepper.sim_stable(scenes.gripper)
+
+
+def episode_done(objects_number, no_change_count, sim_ok, episode_succ,
+                 episode_iter, cfg: EnvConfig) -> torch.Tensor:
+    """Episode termination (smg_env.py:261-281); no_change_count (B, 2)."""
+    return (
+        (objects_number == 0)
+        | (no_change_count.sum(dim=1) > cfg.no_change_limit)
+        | ~sim_ok
+        | (episode_succ >= cfg.max_episode_success)
+        | (episode_iter >= cfg.step_limit)
+    )

@@ -1,0 +1,1 @@
+"""models layer of the PyTorch port (mirrors smg_tpu/models)."""

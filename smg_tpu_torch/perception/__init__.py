@@ -1,0 +1,1 @@
+"""perception layer of the PyTorch port (mirrors smg_tpu/perception)."""

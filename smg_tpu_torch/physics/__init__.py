@@ -1,0 +1,1 @@
+"""physics layer of the PyTorch port (mirrors smg_tpu/physics)."""
