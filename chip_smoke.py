@@ -6,15 +6,25 @@
    and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from smg_tpu_torch/csrc (nvcc, sm_90a).
 3. One phase per kernel: the kernel against its plain PyTorch version on
-   the card, at the shapes the act step gives it — K1 at B = 32 and 1024,
+   the card, at the shapes the main paths give it — K1 at B = 32 and 1024,
    K2 at every (H, C_in) of DenseNet-121 at 224, K3 at its three shapes,
-   K4 at the stem — with each kernel's and plain version's median time
-   from CUDA events.
-4. The main path: make_prod_trainer(32) + make_prod_loop_cfg(32) with
+   K4 at the stem, K6a/K6b (the train-mode dense layer, forward and
+   backward) at every (H, C_in) with 64 images — with each kernel's and
+   plain version's median time from CUDA events and the least time the
+   card could take for the same work (bound_ms, from the shapes); and K6
+   composed over each whole dense block against its plain walk.
+4. The act path: make_prod_trainer(32) + make_prod_loop_cfg(32) with
    is_testing=True, init_loop with the seeded He init, then act steps,
    with per-phase times, the success rate and each kernel's launch count;
    plus one scene's trunk features against the plain bf16 path on the CPU.
-5. Prints the kernel table as one JSON line, the card line, and last
+5. The training path: make_prod_trainer(32, fast_train_conv2="pk") +
+   make_prod_loop_cfg(32, is_testing=False), init_loop, 3 training steps
+   (labels, update through K6, Adam) with per-phase times, the loss and
+   state checks and each kernel's launch count; then one update with
+   'conv' (autograd) against 'pk' on the same experience and weights
+   (times, losses), and on 8 of its scenes the update's gradients through
+   K6 against K6's plain versions on the CPU and against a float32 update.
+6. Prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 
 Options: `--out DIR` writes the details (chip_smoke.json, and with
@@ -25,8 +35,10 @@ torch.profiler and a physics-step timing. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,10 +49,53 @@ import torch
 
 SEED = 0
 B_MAIN = 32
-ACT_STEPS = 3
+ACT_STEPS = 2
+TRAIN_STEPS = 3
 STREAMS = 8 * 13      # one trunk pass: scene_chunk 8 scenes x (1 + 12 masks)
+TRAIN_IMAGES = 64     # one style group of the b32 update: 32 scenes x 2 streams
 TOL_BF16 = 2.0 ** -6  # of the largest |value|: a few bf16 steps
+# Gradients: bf16 operands with f32 sums in another order than the plain
+# version's, through two BatchNorm backwards: relative L2.
+TOL_GRAD = 1e-2
+# The update's gradients at full depth on UPDATE_SCENES scenes, relative L2
+# per network part. At random He-init weights the bf16 update's trunk
+# gradients are fixed only to about half their norm: any change of
+# rounding (K6 on the card against its plain versions on the CPU, at the
+# same rounding points, read 0.48-0.53) flips bf16 ReLUs and near-constant
+# channels of the masked streams' per-image BatchNorm amplify it. So the
+# check is against the float32 'conv' update on the card: bf16 'pk' may be
+# no farther from it than TRUTH_RATIO times bf16 'conv' is (read: 0.98-1.07
+# times). K6 composed over whole blocks is held tightly by
+# phase_dense_block_train, from one forward.
+UPDATE_SCENES = 8
+TRUTH_RATIO = 1.5
 DETAIL = {}
+
+# The card's published peaks (H100 SXM, dense, at 700 W): the bound of a
+# kernel is the larger of its operations over the peak for their type and
+# its bytes (each input read once, each output written once) over HBM's rate.
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+HBM_RATE = 3.35e12
+DENSENET_BLOCKS = ((56, 64, 6), (28, 128, 12), (14, 256, 24), (7, 512, 16))
+
+
+def bound(flops: float, nbytes: float, peak: float):
+    """(bound_ms, bound_by) of work that does `flops` at `peak` and moves
+    `nbytes` through device memory."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def with_bound(kernel: dict, flops: float, nbytes: float, peak: float) -> dict:
+    ms, by = bound(flops, nbytes, peak)
+    kernel.update(bound_ms=ms, bound_by=by, flops=flops, bytes=nbytes)
+    return kernel
+
+
+def densenet_layers():
+    """(H, C_in) of DenseNet-121's 58 dense layers at input 224."""
+    return [(H, C0 + 32 * l) for H, C0, L in DENSENET_BLOCKS for l in range(L)]
 
 
 def check(cond, msg):
@@ -131,10 +186,16 @@ def phase_contact(dev):
         if B == B_MAIN:
             ms, plain = k_ms, p_ms
     DETAIL["K1"] = rows_out
-    return {"name": "K1 contact sweep", "route": "cuda",
-            "source": "smg_tpu_torch/csrc/contact.cu",
-            "replaces": "smg_tpu/ops/contact_pallas.py:160",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+    # At the main path's B = 32: S x T pairs per scene, ~80 f32 operations
+    # each (csrc/contact.cu's loop body); 9 (S + T) inputs and 3 S outputs.
+    S, T = rows_t.shape[1], cols_t.shape[1]
+    return with_bound({"name": "K1 contact sweep", "route": "cuda",
+                       "source": "smg_tpu_torch/csrc/contact.cu",
+                       "replaces": "smg_tpu/ops/contact_pallas.py:160",
+                       "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+                       "library_ms": None},
+                      80.0 * S * T * B_MAIN, 4.0 * (9 * (S + T) + 3 * S) * B_MAIN,
+                      PEAK_F32)
 
 
 def _bn(gen, c, dev):
@@ -185,10 +246,16 @@ def phase_dense_layer(dev):
     DETAIL["K2"] = rows
     print(f"K2 one trunk pass ({len(rows)} layers, {N} images): kernel "
           f"{tot_ms:.3f} ms, plain {tot_plain:.3f} ms")
-    return {"name": "K2 dense layer", "route": "cuda",
-            "source": "smg_tpu_torch/csrc/dense_layer.cu",
-            "replaces": "smg_tpu/ops/dense_layer_pallas.py:405",
-            "max_abs_err": worst, "ms": tot_ms, "plain_ms": tot_plain}
+    flops = nbytes = 0.0
+    for H, c_in in densenet_layers():
+        P = N * H * H
+        flops += 2.0 * P * c_in * 128 + 2.0 * P * 1152 * 32
+        nbytes += 2.0 * P * (c_in + 32) + 2.0 * (c_in * 128 + 1152 * 32) + 8.0 * (c_in + 128)
+    return with_bound({"name": "K2 dense layer", "route": "cuda",
+                       "source": "smg_tpu_torch/csrc/dense_layer.cu",
+                       "replaces": "smg_tpu/ops/dense_layer_pallas.py:405",
+                       "max_abs_err": worst, "ms": tot_ms, "plain_ms": tot_plain,
+                       "library_ms": None}, flops, nbytes, PEAK_BF16)
 
 
 def phase_transition(dev):
@@ -216,10 +283,16 @@ def phase_transition(dev):
         print(f"K3 transition {HW}x{HW}x{C}: rel err {err:.5f} (bound "
               f"{TOL_BF16:.5f}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     DETAIL["K3"] = rows
-    return {"name": "K3 transition", "route": "cuda",
-            "source": "smg_tpu_torch/csrc/transition.cu",
-            "replaces": "smg_tpu/ops/transition_pallas.py:110",
-            "max_abs_err": worst, "ms": tot_ms, "plain_ms": tot_plain}
+    flops = nbytes = 0.0
+    for HW, C in ((56, 256), (28, 512), (14, 1024)):
+        P = STREAMS * HW * HW
+        flops += 2.0 * (P / 4) * C * (C / 2)
+        nbytes += 2.0 * P * C + 2.0 * (P / 4) * (C / 2) + 2.0 * C * (C / 2) + 8.0 * C
+    return with_bound({"name": "K3 transition", "route": "cuda",
+                       "source": "smg_tpu_torch/csrc/transition.cu",
+                       "replaces": "smg_tpu/ops/transition_pallas.py:110",
+                       "max_abs_err": worst, "ms": tot_ms, "plain_ms": tot_plain,
+                       "library_ms": None}, flops, nbytes, PEAK_BF16)
 
 
 def phase_stem(dev):
@@ -240,10 +313,188 @@ def phase_stem(dev):
                     "plain_ms": p_ms}
     print(f"K4 stem 112x112x64 -> 56x56: rel err {err:.5f} (bound "
           f"{TOL_BF16:.5f}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    return {"name": "K4 stem BN/ReLU/maxpool", "route": "cuda",
-            "source": "smg_tpu_torch/csrc/stem_pool.cu",
-            "replaces": "smg_tpu/ops/stem_pool_pallas.py:143",
-            "max_abs_err": err_abs, "ms": k_ms, "plain_ms": p_ms}
+    n_in, n_out = STREAMS * 112 * 112 * 64, STREAMS * 56 * 56 * 64
+    return with_bound({"name": "K4 stem BN/ReLU/maxpool", "route": "cuda",
+                       "source": "smg_tpu_torch/csrc/stem_pool.cu",
+                       "replaces": "smg_tpu/ops/stem_pool_pallas.py:143",
+                       "max_abs_err": err_abs, "ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": None},
+                      3.0 * n_in + 9.0 * n_out, 2.0 * (n_in + n_out) + 8.0 * 64, PEAK_F32)
+
+
+def _k6_layer(gen, dev, c_in):
+    """Random operands of one train-mode dense layer: kernel-layout bf16
+    weights and f32 BatchNorm scale/bias."""
+    bf = torch.bfloat16
+    w1 = (torch.randn((c_in, 128), generator=gen, device=dev) * (2 / c_in) ** 0.5).to(bf)
+    w2 = (torch.randn((9, 128, 32), generator=gen, device=dev) * (2 / 1152) ** 0.5).to(bf)
+    s1, b1 = _bn(gen, c_in, dev)
+    s2, b2 = _bn(gen, 128, dev)
+    return w1, s1, b1, w2, s2, b2
+
+
+def _conv_layer(dev, c_in, w1, s1, b1, w2, s2, b2):
+    """A DenseLayer module holding the same weights, for the 'conv' form."""
+    from smg_tpu_torch.models.densenet import DenseLayer
+
+    lay = DenseLayer(c_in).to(dev)
+    with torch.no_grad():
+        lay.conv1.weight.copy_(w1.float().t().reshape(128, c_in, 1, 1))
+        lay.conv2.weight.copy_(w2.float().reshape(3, 3, 128, 32).permute(3, 2, 0, 1))
+        for bn, sc, bi in ((lay.norm1, s1, b1), (lay.norm2, s2, b2)):
+            bn.weight.copy_(sc)
+            bn.bias.copy_(bi)
+    return lay
+
+
+def phase_dense_layer_train(dev):
+    """K6a/K6b against their plain versions at all 58 layer shapes of
+    DenseNet-121 at 224 with 64 images (one b32 style group), per-image
+    statistics. The yardstick: the 'conv' form's autograd forward + backward
+    of the same layer (F.conv2d and matmuls; not one library call)."""
+    from smg_tpu_torch.models import fast_trunk
+    from smg_tpu_torch.ops import dense_layer_train as k6
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    N = TRAIN_IMAGES
+    rows = []
+    tot = dict(fwd=0.0, fwd_plain=0.0, bwd=0.0, bwd_plain=0.0, conv=0.0)
+    worst_fwd = worst_bwd = 0.0
+    flops_f = flops_b = bytes_f = bytes_b = 0.0
+    for H, C0, L in DENSENET_BLOCKS:
+        C = C0 + 32 * L
+        buf = torch.randn((N, H, H, C), generator=gen, device=dev).to(torch.bfloat16)
+        dbuf = torch.randn((N, H, H, C), generator=gen, device=dev)
+        for l in range(L):
+            c_in = C0 + 32 * l
+            ops = _k6_layer(gen, dev, c_in)
+            w1, s1, b1, w2, s2, b2 = ops
+            got = k6.layer_fwd(buf, c_in, *ops)
+            out = buf[..., c_in:c_in + 32].clone()
+            want = k6.layer_fwd_plain(buf, c_in, *ops)
+            ref = buf[..., c_in:c_in + 32]
+            err_f = max([rel_err(out, ref)] + [rel_err(g, w) for g, w in zip(got, want)])
+            check(err_f <= TOL_BF16, f"K6a H={H} C_in={c_in}: rel err {err_f:.5f}")
+            abs_f = float((out.float() - ref.float()).abs().max())
+            h1, m1, v1, m2, v2 = want
+            bwd_args = (h1, w1, w2, s1, b1, s2, b2, m1, v1, m2, v2)
+            d_k, d_p = dbuf.clone(), dbuf.clone()
+            g_k = k6.layer_bwd(buf, d_k, c_in, *bwd_args)
+            g_p = k6.layer_bwd_plain(buf, d_p, c_in, *bwd_args)
+            dx_k = d_k[..., :c_in] - dbuf[..., :c_in]
+            dx_p = d_p[..., :c_in] - dbuf[..., :c_in]
+            errs = [float((a - b).norm() / b.norm().clamp(min=1e-12))
+                    for a, b in zip((dx_k, *g_k), (dx_p, *g_p))]
+            check(max(errs) < TOL_GRAD, f"K6b H={H} C_in={c_in}: rel L2 {errs}")
+            abs_b = max(float((a - b).abs().max())
+                        for a, b in zip((dx_k, *g_k), (dx_p, *g_p)))
+            del d_p, g_p
+            t = dict(
+                fwd=cuda_ms(lambda: k6.layer_fwd(buf, c_in, *ops), reps=5),
+                fwd_plain=cuda_ms(lambda: k6.layer_fwd_plain(buf, c_in, *ops),
+                                  reps=2, warmup=1),
+                bwd=cuda_ms(lambda: k6.layer_bwd(buf, d_k, c_in, *bwd_args), reps=5),
+                bwd_plain=cuda_ms(lambda: k6.layer_bwd_plain(buf, d_k, c_in, *bwd_args),
+                                  reps=2, warmup=1))
+            lay = _conv_layer(dev, c_in, *ops)
+            x = buf[..., :c_in].detach().clone().requires_grad_(True)
+            dout = dbuf[..., c_in:c_in + 32].to(torch.bfloat16)
+
+            def conv_step():
+                fast_trunk._dense_layer_conv(x, lay, []).backward(dout)
+
+            t["conv"] = cuda_ms(conv_step, reps=3, warmup=1)
+            del lay, x, d_k
+            for k in tot:
+                tot[k] += t[k]
+            worst_fwd, worst_bwd = max(worst_fwd, abs_f), max(worst_bwd, abs_b)
+            P = N * H * H
+            gemm = 2.0 * P * c_in * 128 + 2.0 * P * 1152 * 32
+            flops_f += gemm
+            flops_b += 2 * gemm
+            # The bytes the function needs, each input read once and each
+            # output written once, in the TPU function's types: bf16
+            # activations and weights, f32 moments, BN parameters and their
+            # gradients, f32 dw1/dw2. The backward reads the prefix, h1 and a
+            # bf16 dout and writes a bf16 dx; K6b's f32 block cotangent (read
+            # and written per prefix element) is traffic of its design, not
+            # part of the bound.
+            weights = 2.0 * (c_in * 128 + 1152 * 32)
+            moments, bn = 4.0 * N * (c_in + 128) * 2, 4.0 * (c_in + 128) * 2
+            bytes_f += 2.0 * P * (c_in + 32 + 128) + weights + bn + moments
+            bytes_b += (2.0 * P * (c_in + 128) + 2.0 * P * 32 + 2.0 * P * c_in
+                        + weights + 2 * weights + 2 * bn + moments)
+            rows.append({"H": H, "C_in": c_in, "fwd_rel_err": err_f,
+                         "bwd_rel_l2": max(errs), **t})
+        print(f"K6 train dense layers H={H} C_in {C0}..{C - 32} ({N} images): worst "
+              f"fwd rel err {max(r['fwd_rel_err'] for r in rows if r['H'] == H):.5f} "
+              f"(bound {TOL_BF16:.5f}), worst bwd rel L2 "
+              f"{max(r['bwd_rel_l2'] for r in rows if r['H'] == H):.5f} (bound {TOL_GRAD})")
+        del buf, dbuf
+    DETAIL["K6"] = rows
+    print(f"K6 one train trunk pass ({len(rows)} layers, {N} images): K6a {tot['fwd']:.3f} ms "
+          f"(plain {tot['fwd_plain']:.3f}), K6b {tot['bwd']:.3f} ms (plain "
+          f"{tot['bwd_plain']:.3f}); 'conv' autograd forward + backward {tot['conv']:.3f} ms")
+    common = {"route": "cuda", "source": "smg_tpu_torch/csrc/dense_layer_train.cu",
+              "library_ms": None, "conv_autograd_fwd_bwd_ms": tot["conv"]}
+    return [
+        with_bound({"name": "K6a train dense layer fwd",
+                    "replaces": "smg_tpu/ops/dense_layer_train_pallas.py:222",
+                    "max_abs_err": worst_fwd, "ms": tot["fwd"],
+                    "plain_ms": tot["fwd_plain"], **common}, flops_f, bytes_f, PEAK_BF16),
+        with_bound({"name": "K6b train dense layer bwd",
+                    "replaces": "smg_tpu/ops/dense_layer_train_pallas.py:442",
+                    "max_abs_err": worst_bwd, "ms": tot["bwd"],
+                    "plain_ms": tot["bwd_plain"], **common}, flops_b, bytes_b, PEAK_BF16),
+    ]
+
+
+def phase_dense_block_train(dev):
+    """K6 composed over each whole dense block of DenseNet-121 at 224, 64
+    images: the autograd Function the update runs (K6a layer by layer, then
+    K6b in reverse, the prefix cotangent summed in an f32 block buffer)
+    against the same walk through K6b's plain version from the same forward
+    (K6a is deterministic: the two forwards give the same bits). Every
+    gradient, the block input's and each layer's six, to relative L2
+    TOL_GRAD."""
+    from smg_tpu_torch.ops import dense_layer_train as k6
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf, N = torch.bfloat16, TRAIN_IMAGES
+    rows = []
+    for H, C0, L in DENSENET_BLOCKS:
+        x0 = torch.randn((N, H, H, C0), generator=gen, device=dev).to(bf).requires_grad_(True)
+        layers = [[t.float().requires_grad_(True) for t in _k6_layer(gen, dev, C0 + 32 * l)]
+                  for l in range(L)]
+        # _k6_layer's order is (w1, s1, b1, w2, s2, b2), dense_block_train's too.
+        buf, _ = k6.dense_block_train(x0, layers)
+        dout = torch.randn(buf.shape, generator=gen, device=dev).to(bf)
+        buf.backward(dout)
+        with torch.no_grad():
+            ref = torch.empty_like(buf)
+            ref[..., :C0] = x0
+            saved = [k6.layer_fwd(ref, C0 + 32 * l, w1.to(bf), s1, b1, w2.to(bf), s2, b2)
+                     for l, (w1, s1, b1, w2, s2, b2) in enumerate(layers)]
+            check(torch.equal(ref, buf), f"K6a block H={H}: forwards differ")
+            dbuf = dout.float()
+            errs = []
+            for l in reversed(range(L)):
+                w1, s1, b1, w2, s2, b2 = layers[l]
+                dw1, dw2, ds1, db1, ds2, db2 = k6.layer_bwd_plain(
+                    ref, dbuf, C0 + 32 * l, saved[l][0], w1.to(bf), w2.to(bf),
+                    s1, b1, s2, b2, *saved[l][1:])
+                errs += [_rel_l2(p.grad, g) for p, g in zip(
+                    (w1, s1, b1, w2, s2, b2), (dw1, ds1, db1, dw2, ds2, db2))]
+            errs.append(_rel_l2(x0.grad, dbuf[..., :C0].to(bf)))
+        worst = max(errs)
+        rows.append({"H": H, "C0": C0, "layers": L, "worst_rel_l2": worst,
+                     "input_grad_rel_l2": errs[-1]})
+        print(f"K6 whole dense block H={H} ({L} layers, {N} images): worst gradient "
+              f"rel L2 {worst:.5f}, block input {errs[-1]:.5f} (bound {TOL_GRAD})")
+        check(all(math.isfinite(e) for e in errs) and worst < TOL_GRAD,
+              f"K6 block H={H}: gradients differ from the plain walk: {worst}")
+        del x0, layers, buf, dout, ref, saved, dbuf
+    DETAIL["K6_blocks"] = rows
 
 
 # ---------------------------------------------------------------------------
@@ -251,20 +502,46 @@ def phase_stem(dev):
 # ---------------------------------------------------------------------------
 
 
-def main_path(dev, kernels):
-    from smg_tpu_torch.ops import contact, dense_layer, stem_pool, transition
+def launch_counters():
+    """kernel name -> (module, counter attribute) of every wrapper."""
+    from smg_tpu_torch.ops import (contact, dense_layer, dense_layer_train,
+                                   stem_pool, transition)
+
+    return {"K1 contact sweep": (contact, "launches"),
+            "K2 dense layer": (dense_layer, "launches"),
+            "K3 transition": (transition, "launches"),
+            "K4 stem BN/ReLU/maxpool": (stem_pool, "launches"),
+            "K6a train dense layer fwd": (dense_layer_train, "fwd_launches"),
+            "K6b train dense layer bwd": (dense_layer_train, "bwd_launches")}
+
+
+def zero_counts():
+    for mod, attr in launch_counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(mod, attr) for name, (mod, attr) in launch_counters().items()}
+
+
+def step_timer(phases, last):
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        phases[name] = now - last[0]
+        last[0] = now
+    return mark
+
+
+def drive_act_path(dev, kernels):
     from smg_tpu_torch.train import loop
     from smg_tpu_torch.train.prod_config import make_prod_loop_cfg, make_prod_trainer
 
-    counters = {"K1 contact sweep": contact, "K2 dense layer": dense_layer,
-                "K3 transition": transition,
-                "K4 stem BN/ReLU/maxpool": stem_pool}
     trainer = make_prod_trainer(B_MAIN, device=dev)
     cfg = make_prod_loop_cfg(B_MAIN, is_testing=True)
     check(cfg.env.is_testing and cfg.batch_size == B_MAIN, "config")
 
-    for mod in counters.values():
-        mod.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = loop.init_loop(SEED, trainer, cfg)
@@ -279,15 +556,8 @@ def main_path(dev, kernels):
             first_obs = smg_env.observe(state.scenes)
         phases = {}
         last = [time.perf_counter()]
-
-        def mark(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            phases[name] = now - last[0]
-            last[0] = now
-
         t0 = last[0]
-        state, m = loop.train_step(trainer, cfg, state, timer=mark)
+        state, m = loop.train_step(trainer, cfg, state, timer=step_timer(phases, last))
         total = time.perf_counter() - t0
         succ = (m.grasp_success > 0) | (m.suction_success > 0) | (m.gs_success > 0)
         for name, t in (("predicted_value", m.predicted_value),
@@ -307,13 +577,15 @@ def main_path(dev, kernels):
             f"{k} {v:.3f}" for k, v in phases.items())
               + f"  success {successes[-1]:.3f}")
     torch.cuda.synchronize()
-    for k in kernels:
-        k["launches"] = counters[k["name"]].launches
-    print("launches in the main path: " + ", ".join(
-        f"{k['name'].split()[0]} {k['launches']}" for k in kernels))
-    for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} was not launched by the main path")
-    DETAIL["main_path"] = {"init_s": init_s, "steps": steps,
+    counts = read_counts()
+    act_kernels = [k for k in kernels if not k["name"].startswith("K6")]
+    for k in act_kernels:
+        k["launches"] = counts[k["name"]]
+    print("launches in the act path: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in counts.items()))
+    for k in act_kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched by the act path")
+    DETAIL["act_path"] = {"launches": counts, "init_s": init_s, "steps": steps,
                            "success_rate": statistics.mean(successes),
                            "steps_per_act": cfg.primitive.steps_per_act,
                            "reset_settle_steps": cfg.reset_settle_steps}
@@ -321,6 +593,178 @@ def main_path(dev, kernels):
           f"{statistics.mean(successes):.4f}")
     reference_score(trainer, first_obs)
     return trainer, cfg, state, [s["seconds"] for s in steps]
+
+
+def _finite(t) -> bool:
+    return bool(torch.isfinite(t).all())
+
+
+def drive_train_path(dev, kernels):
+    """The training main path: 3 b32 training steps with the update's dense
+    layers through K6, then 'conv' against 'pk' on one update."""
+    from smg_tpu_torch.train import loop
+    from smg_tpu_torch.train.prod_config import make_prod_loop_cfg, make_prod_trainer
+
+    trainer = make_prod_trainer(B_MAIN, device=dev, fast_train_conv2="pk")
+    cfg = make_prod_loop_cfg(B_MAIN, is_testing=False)
+    check(not cfg.env.is_testing and trainer.cfg.fast_train_conv2 == "pk", "config")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = loop.init_loop(SEED + 1, trainer, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = []
+    for i in range(TRAIN_STEPS):
+        phases = {}
+        last = [time.perf_counter()]
+        t0 = last[0]
+        state, m = loop.train_step(trainer, cfg, state, timer=step_timer(phases, last))
+        total = time.perf_counter() - t0
+        loss = float(m.loss)
+        if i == 0:
+            check(loss == 0.0, f"train step 0: loss {loss} on the blank prev, want 0")
+        else:
+            check(math.isfinite(loss) and loss > 0, f"train step {i}: loss {loss}")
+        for name, t in (("label_value", m.label_value), ("reward", m.reward),
+                        ("predicted_value", m.predicted_value),
+                        ("pos", state.scenes.objects.pos),
+                        ("quat", state.scenes.objects.quat)):
+            check(_finite(t), f"train step {i}: non-finite {name}")
+        check(all(_finite(t) for t in trainer.model.state_dict().values()),
+              f"train step {i}: non-finite weights or running stats")
+        with torch.no_grad():
+            drift = max(float((p - q).abs().max()) for p, q in
+                        zip(trainer.model.parameters(), trainer.target.parameters()))
+        if i >= 1:
+            check(drift > 0, f"train step {i}: online weights equal the target's")
+        check(state.trainer.iteration == i + 1, "iteration count")
+        steps.append({"step": i, "seconds": total, "loss": loss,
+                      "phases": {k: round(v, 6) for k, v in phases.items()},
+                      "online_target_max_diff": drift,
+                      "explored": int(m.explored.sum()),
+                      "actions": m.action.tolist()})
+        print(f"train step {i}: {total:.3f} s  " + "  ".join(
+            f"{k} {v:.3f}" for k, v in phases.items()) + f"  loss {loss:.5f}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print("launches in the training path: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in counts.items()))
+    for k in kernels:
+        k["launches_train"] = counts[k["name"]]
+        if k["name"].startswith("K6"):
+            k["launches"] = counts[k["name"]]
+        check(counts[k["name"]] > 0, f"{k['name']} was not launched by the training path")
+    DETAIL["train_path"] = {"launches": counts, "init_s": init_s, "steps": steps}
+    DETAIL["update_modes"] = compare_update_modes(trainer, state)
+
+
+def _part_grads(model) -> dict:
+    """Each network part's gradient (trunks and heads) as one f32 vector."""
+    return {name: torch.cat([p.grad.float().ravel() for p in part.parameters()])
+            for name, part in model.named_children()}
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.float().cpu() - want.float().cpu()).norm() / want.float().norm())
+
+
+def _update_grads(trainer, snap, exp, labels, iteration, mode):
+    """(loss, per-part gradients) of one update from the weights in snap."""
+    from smg_tpu_torch.train.trainer import TrainerState
+
+    trainer.cfg = dataclasses.replace(trainer.cfg, fast_train_conv2=mode)
+    trainer.model.load_state_dict(snap)
+    _, loss = trainer.update(TrainerState(iteration), exp, labels)
+    return float(loss), _part_grads(trainer.model)
+
+
+def compare_update_modes(trainer, state):
+    """The update's gradients through K6 at full depth, and its time.
+
+    1. One b32 update with 'conv' (autograd of the conv form) against 'pk'
+       (K6) on the same experience and weights, in turns pk, conv, conv, pk:
+       both times; the losses agree to 5% (bf16 compute, PARITY dev 12), and
+       two 'pk' runs give the same loss.
+    2. On the first UPDATE_SCENES scenes, the bf16 'pk' and 'conv'
+       gradients against the float32 'conv' update on the card: 'pk' is no
+       farther from it than TRUTH_RATIO times 'conv' is, per network part.
+       A part with no gradient in one run has none in the others. Reported:
+       the 'pk' update on the card against the same update on the CPU (K6's
+       plain versions, the same bf16 rounding points).
+    """
+    from smg_tpu_torch.train.trainer import Trainer, TrainerState
+
+    exp = state.prev.exp
+    check(bool(exp.valid.any()), "no valid experience to compare the update on")
+    labels = trainer.current_reward(state.prev.choice, state.prev.outcome)
+    model_snap = copy.deepcopy(trainer.model.state_dict())
+    opt_snap = copy.deepcopy(trainer.opt.state_dict())
+    cfg0, it = trainer.cfg, state.trainer.iteration
+    res = {"pk": [], "conv": []}
+    for mode in ("pk", "conv", "conv", "pk"):
+        trainer.cfg = dataclasses.replace(cfg0, fast_train_conv2=mode)
+        trainer.model.load_state_dict(model_snap)
+        trainer.opt.load_state_dict(opt_snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = trainer.update(TrainerState(it), exp, labels)
+        torch.cuda.synchronize()
+        res[mode].append((time.perf_counter() - t0, float(loss)))
+    loss_pk, loss_conv = res["pk"][0][1], res["conv"][0][1]
+    diff = abs(loss_pk - loss_conv) / max(abs(loss_conv), 1e-6)
+    print(f"update at b32 ({int(exp.valid.sum())} valid scenes, styles "
+          f"{torch.bincount(exp.style[exp.valid].long(), minlength=3).tolist()}): "
+          f"'pk' (K6) {', '.join(f'{t:.3f}' for t, _ in res['pk'])} s, 'conv' autograd "
+          f"{', '.join(f'{t:.3f}' for t, _ in res['conv'])} s; loss {loss_pk:.6f} vs "
+          f"{loss_conv:.6f} (rel diff {diff:.4f}, bound 0.05)")
+    check(all(math.isfinite(l) for v in res.values() for _, l in v), "non-finite loss")
+    check(res["pk"][0][1] == res["pk"][1][1], "K6 update loss differs between repeats")
+    check(diff <= 0.05, f"'pk' and 'conv' losses differ by {diff:.4f}")
+
+    sub = exp.map(lambda t: t[:UPDATE_SCENES])
+    sub_labels = labels[:UPDATE_SCENES]
+    check(bool(sub.valid.any()), f"no valid scene among the first {UPDATE_SCENES}")
+    runs = {"pk": _update_grads(trainer, model_snap, sub, sub_labels, it, "pk"),
+            "conv": _update_grads(trainer, model_snap, sub, sub_labels, it, "conv")}
+    trainer.cfg = cfg0
+    trainer.model.load_state_dict(model_snap)
+    trainer.opt.load_state_dict(opt_snap)
+    cpu = Trainer(cfg0, device="cpu")
+    t0 = time.perf_counter()
+    runs["pk plain"] = _update_grads(cpu, model_snap, sub.map(lambda t: t.cpu()),
+                                     sub_labels.cpu(), it, "pk")
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    f32 = Trainer(dataclasses.replace(cfg0, model=dataclasses.replace(
+        cfg0.model, dtype="float32")), device=trainer.device)
+    runs["f32 conv"] = _update_grads(f32, model_snap, sub, sub_labels, it, "conv")
+    del f32
+    truth = runs["f32 conv"][1]
+    live = [k for k, g in truth.items() if float(g.norm()) > 0]
+    for name, (loss, g) in runs.items():
+        check(math.isfinite(loss), f"{name} update: loss {loss}")
+        for k in truth:
+            if k not in live:
+                check(float(g[k].norm()) == 0.0, f"{name} update: a gradient in {k}")
+    check(len(live) >= 2, f"update gradients in {live} only")
+    kp = {k: _rel_l2(runs["pk"][1][k], runs["pk plain"][1][k]) for k in live}
+    to_f32 = {m: {k: _rel_l2(runs[m][1][k], truth[k]) for k in live} for m in ("pk", "conv")}
+    pk_conv = {k: _rel_l2(runs["pk"][1][k], runs["conv"][1][k]) for k in live}
+    fmt = lambda d: ", ".join(f"{k} {v:.4f}" for k, v in d.items())  # noqa: E731
+    print(f"update gradients on {UPDATE_SCENES} scenes (styles "
+          f"{torch.bincount(sub.style[sub.valid].long(), minlength=3).tolist()}), "
+          f"relative L2 per part: K6 on the card vs the plain versions on the CPU "
+          f"({cpu_s:.1f} s) (reported): {fmt(kp)}; bf16 'pk' vs f32: "
+          f"{fmt(to_f32['pk'])}; bf16 'conv' vs f32: {fmt(to_f32['conv'])} (bound: 'pk' "
+          f"<= {TRUTH_RATIO} x 'conv'); 'pk' vs 'conv': {fmt(pk_conv)}")
+    check(all(to_f32["pk"][k] <= TRUTH_RATIO * to_f32["conv"][k] for k in live),
+          f"'pk' gradients farther from float32 than 'conv': {to_f32}")
+    return {"pk_s": [t for t, _ in res["pk"]], "conv_s": [t for t, _ in res["conv"]],
+            "loss_pk": loss_pk, "loss_conv": loss_conv, "rel_diff": diff,
+            "subset_scenes": UPDATE_SCENES, "kernel_vs_plain_rel_l2": kp,
+            "to_f32_rel_l2": to_f32, "pk_vs_conv_rel_l2": pk_conv,
+            "subset_losses": {k: v[0] for k, v in runs.items()}, "cpu_plain_s": cpu_s}
 
 
 def profile_act_step(trainer, cfg, state, step_seconds, out_dir):
@@ -460,19 +904,22 @@ def main(argv):
     DETAIL["build_log"] = _build.build_log
 
     kernels = [phase_contact(dev), phase_dense_layer(dev),
-               phase_transition(dev), phase_stem(dev)]
+               phase_transition(dev), phase_stem(dev), *phase_dense_layer_train(dev)]
+    phase_dense_block_train(dev)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-    trainer, cfg, state, step_seconds = main_path(dev, kernels)
+    trainer, cfg, state, step_seconds = drive_act_path(dev, kernels)
     if args.profile:
         profile_act_step(trainer, cfg, state, step_seconds, args.out)
+    del trainer, state
+    drive_train_path(dev, kernels)
 
     DETAIL["card"] = card
     DETAIL["kernels"] = kernels
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(DETAIL, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,15 +19,17 @@
 // What bounds it on the H100: at 224 the 58 layers are GEMMs of M = P
 // pixels (3136 per image in block 1 down to 49 in block 4) with K = C_in
 // (64..992) into 128 bottleneck channels, then K = 9 x 128 into 32: about
-// 2.3 GFLOP per image in all, far above the ops:byte ridge, so tensor
-// cores and their feed are the limit. Two launches per layer:
+// 4.8 GFLOP per image in all (2 P K N summed; 2.08 + 1.43 + 1.10 + 0.21 by
+// block), far above the ops:byte ridge, so tensor cores and their feed are
+// the limit. Two launches per layer:
 //   1. the bottleneck: the shared tiled GEMM (common.cuh) whose A loader
 //      applies norm1 + ReLU while staging the prefix, and whose epilogue
 //      applies the bf16 rounding, norm2 and ReLU, writing h2 (P x 128 bf16);
-//   2. conv2: 64-pixel tiles; per tap the shifted h2 rows (zeros off the
-//      image) are staged in shared memory and contracted with that tap's
-//      128 x 32 weights on tensor cores, each tap's partial rounded before
-//      the sum; the 32 channels land at their offset in the buffer.
+//   2. conv2 (common.cuh's conv3x3_kernel): 64-pixel tiles; per tap the
+//      shifted h2 rows (zeros off the image) are staged in shared memory
+//      and contracted with that tap's 128 x 32 weights on tensor cores,
+//      each tap's partial rounded before the sum; the 32 channels land at
+//      their offset in the buffer.
 // Why two launches and not the TPU kernel's h1 tile with a halo in VMEM:
 // h2 is 128 channels per pixel while the bottleneck reads C_in (up to 992),
 // so the round trip through device memory (mostly L2-resident: 0.8 MB per
@@ -42,7 +44,6 @@ namespace {
 using smg::bf16;
 
 constexpr int BOTTLENECK = 128;
-constexpr int GROWTH = 32;
 
 struct BnReluLoader {
   const bf16* x;   // block buffer (P, ld)
@@ -70,96 +71,13 @@ struct Bn2Epilogue {
   }
 };
 
-constexpr int C2_BM = 64;                  // pixels per block
-constexpr int C2_THREADS = 128;            // 4 warps x 16 pixels
-constexpr int C2_LDA = BOTTLENECK + 8;     // rows 272 B apart
-constexpr int C2_LDB = GROWTH + 8;         // rows 80 B apart
-
-__global__ void __launch_bounds__(C2_THREADS)
-conv2_kernel(const bf16* __restrict__ h2, const bf16* __restrict__ w2,
-             bf16* __restrict__ buf, int N, int H, int W, int ld, int c_off) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[C2_BM * C2_LDA];
-  __shared__ __align__(128) bf16 Bs[BOTTLENECK * C2_LDB];
-  __shared__ __align__(128) float stage[4][16 * 16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int P = N * H * W;
-  const int p0 = blockIdx.x * C2_BM;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> total[2], part[2];
-  wmma::fill_fragment(total[0], 0.0f);
-  wmma::fill_fragment(total[1], 0.0f);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    // A: 64 pixels x 128 channels of shifted h2 = 1024 chunks; 8 per thread.
-#pragma unroll
-    for (int it = 0; it < 8; ++it) {
-      const int e = tid + it * C2_THREADS;
-      const int r = e >> 4;
-      const int c8 = (e & 15) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      const int p = p0 + r;
-      if (p < P) {
-        const int x = p % W;
-        const int t = p / W;
-        const int y = t % H;
-        const int yy = y + dy, xx = x + dx;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-          val = *reinterpret_cast<const uint4*>(
-              h2 + (size_t)(p + dy * W + dx) * BOTTLENECK + c8);
-      }
-      *reinterpret_cast<uint4*>(&As[r * C2_LDA + c8]) = val;
-    }
-    // B: this tap's 128 x 32 weights = 512 chunks; 4 per thread.
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int e = tid + it * C2_THREADS;
-      const int r = e >> 2;
-      const int c8 = (e & 3) * 8;
-      *reinterpret_cast<uint4*>(&Bs[r * C2_LDB + c8]) = *reinterpret_cast<const uint4*>(
-          w2 + ((size_t)tap * BOTTLENECK + r) * GROWTH + c8);
-    }
-    __syncthreads();
-    wmma::fill_fragment(part[0], 0.0f);
-    wmma::fill_fragment(part[1], 0.0f);
-#pragma unroll
-    for (int k = 0; k < BOTTLENECK; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b0, b1;
-      wmma::load_matrix_sync(af, &As[(warp * 16) * C2_LDA + k], C2_LDA);
-      wmma::load_matrix_sync(b0, &Bs[k * C2_LDB], C2_LDB);
-      wmma::load_matrix_sync(b1, &Bs[k * C2_LDB + 16], C2_LDB);
-      wmma::mma_sync(part[0], af, b0, part[0]);
-      wmma::mma_sync(part[1], af, b1, part[1]);
-    }
-    // Accumulator fragments of one shape share their element layout, so
-    // the per-tap rounding is elementwise.
-#pragma unroll
-    for (int f = 0; f < 2; ++f)
-#pragma unroll
-      for (int q = 0; q < part[f].num_elements; ++q)
-        total[f].x[q] += smg::round_bf16(part[f].x[q]);
-    __syncthreads();
+// conv2's source: h2 as it is (norm2 + ReLU were applied by the GEMM).
+struct H2Rows {
+  const bf16* h2;  // (P, 128)
+  __device__ uint4 load8(int p, int c8) const {
+    return *reinterpret_cast<const uint4*>(h2 + (size_t)p * BOTTLENECK + c8);
   }
-
-  float* st = stage[warp];
-#pragma unroll
-  for (int f = 0; f < 2; ++f) {
-    wmma::store_matrix_sync(st, total[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int r = lane >> 1;
-    const int c = (lane & 1) * 8;
-    const int p = p0 + warp * 16 + r;
-    if (p < P)
-      *reinterpret_cast<uint4*>(buf + (size_t)p * ld + c_off + f * 16 + c) =
-          smg::pack8(st + r * 16 + c);
-    __syncwarp();
-  }
-}
+};
 
 }  // namespace
 
@@ -176,7 +94,7 @@ extern "C" int smg_dense_layer(bf16* buf, const float* a1, const float* b1,
       loader, w1, BOTTLENECK, P, c_in, epi);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  conv2_kernel<<<(P + C2_BM - 1) / C2_BM, C2_THREADS, 0, stream>>>(h2, w2, buf, N, H,
-                                                                   W, ld, c_in);
+  smg::conv3x3_kernel<<<(P + smg::C3_BM - 1) / smg::C3_BM, smg::C3_THREADS, 0, stream>>>(
+      H2Rows{h2}, w2, buf, N, H, W, ld, c_in);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 Three DenseNet-121 trunks (grasp / suction / grasp-then-suction) and three
 heads; style 2 reads the suction head, as the reference does
 (models.py:144; the JAX package's default tied_ets_head=True). Eval scoring
-runs through models/fast_trunk.py::score_eval. The JAX options no caller
+runs through models/fast_trunk.py::score_eval, the update's train-mode
+forward through ::score_train. The JAX options no caller
 sets (the tiny trunk, num_rotations > 1, an untied ETS head) are not
 ported.
 """
@@ -95,6 +96,13 @@ class AffordanceNet(nn.Module):
         the M object slots (affordance.py:132-165)."""
         return fast_trunk.score_eval(self.trunk(style), self.head(style),
                                      scene_img, mask_imgs, self.cfg.num_out)
+
+    def score_train(self, scene_img, mask_img, style: int, conv2: str = "conv"):
+        """Train-mode scores of n scenes with one exec mask each, per-image
+        BatchNorm (the update's batch-1 passes, affordance.py:141-149):
+        (out (n, num_out) f32, {bn_module: per-scene running (mean, var)})."""
+        return fast_trunk.score_train(self.trunk(style), self.head(style),
+                                      scene_img, mask_img, self.cfg.num_out, conv2)
 
 
 def init_params(model: AffordanceNet, generator: torch.Generator) -> None:

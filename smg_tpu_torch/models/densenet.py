@@ -3,8 +3,9 @@
 The module holds torch-layout parameters (OIHW convs, BatchNorm2d with
 running statistics) under the Flax module's names, so the bridge maps one
 tree onto the other by name. Its eval forward is
-models/fast_trunk.py::trunk_features_eval (kernels K4, K2, K3); the
-train-mode forward arrives with the training-step port.
+models/fast_trunk.py::trunk_features_eval (kernels K4, K2, K3); its
+train-mode forward, with per-image batch statistics, is
+::trunk_features_train (kernel K6 under conv2='pk').
 
 `block_config` is an argument, as in the Flax DenseNetTrunk
 (densenet.py:99), so that tests can build a shallow trunk.

@@ -1,7 +1,7 @@
-"""Eval-mode trunk and head forward over the port's kernels.
+"""Trunk and head forward over the port's kernels: eval and train mode.
 
-Port of the eval half of smg_tpu/models/fast_trunk.py (trunk_features_eval
-on the `xla_fl` path, head_eval, score_eval). Per trunk call:
+Port of smg_tpu/models/fast_trunk.py. The eval half (trunk_features_eval
+on the `xla_fl` path, head_eval, score_eval), per trunk call:
 
 - stem: conv0 as one gray tap (the input is a triplicated depth map, so
   conv(x, W) == conv(x[..., :1], W.sum(in)) — fast_trunk.py:39-40), then
@@ -17,6 +17,19 @@ Eval BatchNorm folds to an f32 affine a = scale * rsqrt(var + 1e-5),
 b = bias - mean * a (dense_block_pallas.py:147-151). Compute runs in the
 trunk's dtype: bf16 with f32 accumulation and f32 affines (PARITY dev 12),
 or float32 for the CPU parity tests.
+
+The train half (trunk_features_train, head_train, score_train;
+fast_trunk.py:420-963) is the update's differentiable forward. BatchNorm
+takes **per-image** moments over (H, W), E[x^2] - E[x]^2 in f32: the JAX
+update runs every scene's scene and mask streams as separate batch-1
+passes, so one call here may carry any number of images. (nn.BatchNorm2d's
+train mode would pool the batch and update the running variance
+unbiased; it is not used.) The dense layers dispatch on `conv2`: 'pk'
+runs K6 forward and backward (ops/dense_layer_train.py, one autograd
+Function per dense block); 'conv' is autograd of the conv form
+(_dense_layer_train(conv2='conv'), fast_trunk.py:438-495), as XLA
+differentiated it. The stem, transitions, norm5 and head are plain
+PyTorch with autograd, as they were XLA outside any kernel in JAX.
 """
 
 from __future__ import annotations
@@ -24,10 +37,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from smg_tpu_torch.models.densenet import BN_EPS, GROWTH_RATE, DenseNetTrunk
+from smg_tpu_torch.models.densenet import BN_EPS, BN_MOMENTUM, GROWTH_RATE, DenseNetTrunk
 from smg_tpu_torch.ops import dense_layer as k2
+from smg_tpu_torch.ops import dense_layer_train as k6
 from smg_tpu_torch.ops import stem_pool as k4
 from smg_tpu_torch.ops import transition as k3
+
+TRAIN_CONV2 = ("conv", "pk")
+_KEEP = 1.0 - BN_MOMENTUM   # Flax's running-average retention, 0.9
 
 
 def fold_bn(bn: torch.nn.BatchNorm2d):
@@ -138,3 +155,140 @@ def score_eval(trunk, head, scene_img: torch.Tensor, mask_imgs: torch.Tensor,
     scene_rep = scene_feat[:, None].expand(B, M, h, w, c).reshape(B * M, h, w, c)
     both = torch.cat([scene_rep, mask_feat], dim=-1)
     return head_eval(head, both, num_out).reshape(B, M, num_out)
+
+
+# ---------------------------------------------------------------------------
+# Train mode (the update's forward; autograd gives the backward)
+# ---------------------------------------------------------------------------
+
+
+def _bn_train(xf: torch.Tensor, bn: torch.nn.BatchNorm2d, moments: list):
+    """Per-image batch BN of f32 (N, ..., C): the affine (a, b), each
+    (N, 1, 1, C), differentiable through the moments. Appends
+    (bn, mean, var) with detached (N, C) moments to `moments`."""
+    dims = tuple(range(1, xf.dim() - 1))
+    mean = xf.mean(dim=dims)
+    var = (xf * xf).mean(dim=dims) - mean * mean
+    a = bn.weight * torch.rsqrt(var + BN_EPS)
+    b = bn.bias - mean * a
+    moments.append((bn, mean.detach(), var.detach()))
+    return a[:, None, None, :], b[:, None, None, :]
+
+
+def _dense_layer_conv(x: torch.Tensor, lay, moments: list) -> torch.Tensor:
+    """conv2='conv': one dense layer as the JAX conv form
+    (_dense_layer_train, fast_trunk.py:438-495); h1 stays f32."""
+    dt = x.dtype
+    N, H, W, C = x.shape
+    xf = x.float()
+    a1, b1 = _bn_train(xf, lay.norm1, moments)
+    y1 = torch.relu(xf * a1 + b1).to(dt)
+    w1 = lay.conv1.weight.reshape(-1, C).t().to(dt)
+    h1 = (y1.float().reshape(-1, C) @ w1.float()).reshape(N, H, W, -1)
+    a2, b2 = _bn_train(h1, lay.norm2, moments)
+    h2 = torch.relu(h1 * a2 + b2).to(dt).permute(0, 3, 1, 2)
+    new = F.conv2d(h2, lay.conv2.weight.to(dt), padding=1)
+    return new.permute(0, 2, 3, 1).to(dt)
+
+
+def _dense_block_train(block, x0: torch.Tensor, conv2: str, moments: list):
+    layers = list(block.children())
+    if conv2 == "pk":
+        ops = [(lay.conv1.weight.reshape(lay.conv1.out_channels, -1).t(),
+                lay.norm1.weight, lay.norm1.bias,
+                lay.conv2.weight.permute(2, 3, 1, 0).reshape(9, lay.conv2.in_channels, -1),
+                lay.norm2.weight, lay.norm2.bias) for lay in layers]
+        buf, moms = k6.dense_block_train(x0, ops)
+        for lay, (m1, v1, m2, v2) in zip(layers, moms):
+            moments += [(lay.norm1, m1, v1), (lay.norm2, m2, v2)]
+        return buf
+    feats = [x0]
+    for lay in layers:
+        x = feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)
+        feats.append(_dense_layer_conv(x, lay, moments))
+    return torch.cat(feats, dim=-1)
+
+
+def _transition_train(tr, x: torch.Tensor, moments: list) -> torch.Tensor:
+    """BN, ReLU, 2x2 mean (f32, rounded), 1x1 conv (fast_trunk.py:866-896)."""
+    dt = x.dtype
+    N, H, W, C = x.shape
+    xf = x.float()
+    a, b = _bn_train(xf, tr.norm, moments)
+    h = torch.relu(xf * a + b).to(dt)
+    h = h.float().reshape(N, H // 2, 2, W // 2, 2, C).mean(dim=(2, 4)).to(dt)
+    kf = tr.conv.weight.reshape(tr.conv.out_channels, C).t().to(dt)
+    out = h.float().reshape(-1, C) @ kf.float()
+    return out.to(dt).reshape(N, H // 2, W // 2, -1)
+
+
+def trunk_features_train(trunk: DenseNetTrunk, x: torch.Tensor, conv2: str = "conv"):
+    """Train-mode DenseNet features with per-image BN (fast_trunk.py:828-906):
+    (N, S, S, 3) -> ((N, S/32, S/32, C_final), moments), where moments is a
+    list of (bn_module, mean (N, C), var (N, C)) in forward order."""
+    if conv2 not in TRAIN_CONV2:
+        raise ValueError(f"conv2 must be one of {TRAIN_CONV2}, got {conv2!r}")
+    dt = trunk.dtype
+    moments: list = []
+    # Gray-tap stem conv0: the input channels are equal, so the kernel's
+    # sum over them gives the same conv, and its gradient reaches all three.
+    kg = trunk.conv0.weight.sum(dim=1, keepdim=True).to(dt)
+    y = F.conv2d(x[..., :1].to(dt).permute(0, 3, 1, 2), kg, stride=2, padding=3)
+    yf = y.permute(0, 2, 3, 1).float()
+    a0, b0 = _bn_train(yf, trunk.norm0, moments)
+    y = torch.relu(yf * a0 + b0).to(dt).permute(0, 3, 1, 2)
+    x = F.max_pool2d(y, 3, stride=2, padding=1).permute(0, 2, 3, 1)
+    n_blocks = len(trunk.block_config)
+    for i in range(n_blocks):
+        x = _dense_block_train(getattr(trunk, f"denseblock{i + 1}"), x, conv2, moments)
+        if i < n_blocks - 1:
+            x = _transition_train(getattr(trunk, f"transition{i + 1}"), x, moments)
+    xf = x.float()
+    a5, b5 = _bn_train(xf, trunk.norm5, moments)
+    return (xf * a5 + b5).to(dt), moments
+
+
+def head_train(head, x: torch.Tensor, num_out: int):
+    """AffordanceHead train forward with per-image BN (fast_trunk.py:909-928):
+    (N, h, w, C) -> ((N, num_out) f32, moments)."""
+    dt = x.dtype
+    moments: list = []
+    xf = x.float()
+    a0, b0 = _bn_train(xf, head.norm0, moments)
+    h = torch.relu(xf * a0 + b0).to(dt)
+    k0 = head.conv0.weight.reshape(head.conv0.out_channels, -1).t().to(dt)
+    h = (h.float().reshape(-1, k0.shape[0]) @ k0.float()).reshape(x.shape[:3] + (-1,))
+    a1, b1 = _bn_train(h, head.norm1, moments)
+    h = torch.relu(h * a1 + b1).to(dt)
+    k1 = head.conv1.weight.permute(2, 3, 1, 0).reshape(-1, num_out).to(dt)
+    return h.float().reshape(x.shape[0], -1) @ k1.float(), moments
+
+
+def _running(old: torch.Tensor, stat: torch.Tensor) -> torch.Tensor:
+    return _KEEP * old + (1.0 - _KEEP) * stat
+
+
+def score_train(trunk, head, scene_img: torch.Tensor, mask_img: torch.Tensor,
+                num_out: int, conv2: str = "conv"):
+    """Train-mode AffordanceNet.score of n scenes, one exec mask each
+    (fast_trunk.py:931-963 per scene, as the update calls it with batch 1).
+
+    scene_img, mask_img (n, S, S, 3). The 2n streams go through one trunk
+    call (per-image BN keeps them independent); the head reads the
+    concatenated features. Returns (out (n, num_out) f32, new_stats), where
+    new_stats maps each BatchNorm module of the trunk and head to its
+    per-scene running (mean, var), each (n, C): the scene pass's update
+    feeds the mask pass's, as the two sequential Flax calls do.
+    """
+    n = scene_img.shape[0]
+    feats, moments = trunk_features_train(trunk, torch.cat([scene_img, mask_img]), conv2)
+    out, head_moments = head_train(head, torch.cat([feats[:n], feats[n:]], dim=-1),
+                                   num_out)
+    new = {}
+    with torch.no_grad():
+        for bn, m, v in moments:
+            new[bn] = (_running(_running(bn.running_mean, m[:n]), m[n:]),
+                       _running(_running(bn.running_var, v[:n]), v[n:]))
+        for bn, m, v in head_moments:
+            new[bn] = (_running(bn.running_mean, m), _running(bn.running_var, v))
+    return out, new

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All sources under smg_tpu_torch/csrc/ compile with nvcc for sm_90a into
-one shared library with a plain C interface, loaded through ctypes. The
+Each source under smg_tpu_torch/csrc/ compiles with its own nvcc process
+for sm_90a, all started together; the objects link into one shared
+library with a plain C interface, loaded through ctypes. The
 library is named by a digest of the sources, so an edited kernel rebuilds
 and an unchanged one is reused. The build directory (smg_tpu_torch/_build/)
 is ignored by git. Nothing here runs when the package is imported.
@@ -42,6 +43,12 @@ SIGNATURES = {
     "smg_transition": [P, P, P, P, P, I, I, I, I, I, I, I, P],
     # buf, a1, b1, w1, a2, b2, w2, h2 scratch; N, H, W, ld, C_in; stream
     "smg_dense_layer": [P] * 8 + [I, I, I, I, I, P],
+    # buf, w1, s1, bi1, w2, s2, bi2, h1, st1, st2; N, H, W, ld, C_in; stream
+    "smg_dense_layer_train_fwd": [P] * 10 + [I] * 5 + [P],
+    # buf, dbuf, h1, w1t, w2t, s1, bi1, mean1, var1, s2, bi2, mean2, var2,
+    # aff1, aff2, du2, dh1, du1, sums1, sums2, part1, part2;
+    # N, H, W, ld, C_in, ldw1, split1, chunk1, split2, chunk2; stream
+    "smg_dense_layer_train_bwd": [P] * 22 + [I] * 10 + [P],
 }
 
 
@@ -71,6 +78,42 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(so: Path) -> str:
+    """One nvcc per source, all started together, then one link into `so`.
+    Returns the compilers' output (ptxas register/smem report included)."""
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-lineinfo", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(cmd[-1])
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append("link")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    (BUILD_DIR / "build.log").write_text(text)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{text}")
+    os.replace(tmp, so)
+    return text
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library; builds it first if this digest is new."""
     global _lib, build_seconds, build_log
@@ -82,18 +125,7 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libsmg_kernels_{_digest()}.so"
     if not so.exists():
         t0 = time.perf_counter()
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-            "-o", str(tmp), *[str(s) for s in sorted(CSRC.glob("*.cu"))],
-        ]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + build_log)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, so)
+        build_log = _compile_and_link(so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():

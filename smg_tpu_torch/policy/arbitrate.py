@@ -1,11 +1,12 @@
 """Action arbitration, batched over scenes.
 
-Port of smg_tpu/policy/arbitrate.py for the testing-mode act step: masked
-per-object / per-pair maxima, the 2x ETS bonus of the reactive method and
-the 'grasp the pair member with the better enveloping score' ordering.
-In testing the explore probability is 0 (arbitrate.py:58-59), so the
-choice is the exploit one; epsilon-greedy exploration arrives with the
-training step.
+Port of smg_tpu/policy/arbitrate.py: masked per-object / per-pair maxima,
+the 2x ETS bonus of the reactive method, the 'grasp the pair member with
+the better enveloping score' ordering, and epsilon-greedy exploration
+(arbitrate.py:55-62, 143-156). In testing the explore probability is 0 and
+no random number is drawn. In training each scene flips its own coin; the
+draws come from the loop's torch.Generator, so they are not the JAX
+package's bits (its tests compare distributions).
 """
 
 from __future__ import annotations
@@ -46,6 +47,15 @@ class ActionChoice(_Batched):
     exploit_action: torch.Tensor  # (B,) int32
 
 
+def explore_probability(iteration: int, decay: bool, is_testing: bool) -> float:
+    """Parity: reference main.py:78,345 (arbitrate.py:55-62)."""
+    if is_testing:
+        return 0.0
+    if decay:
+        return max(0.5 * 0.9998 ** int(iteration), 0.1)
+    return 0.5
+
+
 def _masked_best(conf: torch.Tensor, valid: torch.Tensor):
     """(max, [obj, rot]) of (B, N, R) scores under a (B, N) mask."""
     B, N, R = conf.shape
@@ -68,9 +78,15 @@ def select_action(
     *,
     method: str = "reinforcement",
     is_ets: bool = False,
+    is_testing: bool = True,
+    explore_prob: float = 0.0,
+    generator: torch.Generator | None = None,
 ) -> ActionChoice:
-    """Pick the primitive + targets for B scenes, greedily
-    (arbitrate.py:73-206 with is_testing=True)."""
+    """Pick the primitive + targets for B scenes (arbitrate.py:73-206).
+
+    Out of testing, each scene explores with probability explore_prob: a
+    uniform action over 2 primitives, or 3 with ETS (rand % 2 where only
+    one object is valid), drawn from `generator`."""
     B, n, _ = gra_conf.shape
     dev = gra_conf.device
     num = valid.sum(dim=1)
@@ -112,8 +128,17 @@ def select_action(
                         ACTION_ETS, ACTION_GRASP),
         )
         exploit = torch.where(multi, exploit_multi, single)
-    action = exploit = _i32(exploit)
-    explored = torch.zeros(B, dtype=torch.bool, device=dev)
+    exploit = _i32(exploit)
+    if is_testing:
+        explored = torch.zeros(B, dtype=torch.bool, device=dev)
+        action = exploit
+    else:
+        explored = torch.rand(B, generator=generator, device=dev) < explore_prob
+        rand_raw = torch.randint(0, 3 if is_ets else 2, (B,), generator=generator,
+                                 device=dev)
+        if is_ets:
+            rand_raw = torch.where(multi, rand_raw, rand_raw % 2)
+        action = torch.where(explored, _i32(rand_raw), exploit)
 
     is_g = action == ACTION_GRASP
     is_s = action == ACTION_SUCTION

@@ -1,11 +1,12 @@
-"""The batched act loop — main.py's per-step spine (port of smg_tpu/train/loop.py).
+"""The batched multistage loop — main.py's per-step spine (port of smg_tpu/train/loop.py).
 
-Ported: the testing-mode step (env.is_testing=True), the serving path of
-this system: observe -> segment -> score with the online net -> greedy
-arbitration (explore probability 0 in testing) -> PE/OO geometry -> batched
-primitive execution -> counters -> auto-reset with a settle. It makes no
-label and no update (loop.py:233-239). A non-testing config raises: the
-training step (labels, update, Adam) is the next slice of the port.
+One train_step: observe -> segment -> score with the online net ->
+arbitrate (epsilon-greedy out of testing) -> [training: labels for the
+previous step (double-DQN through the target net, or reactive classes)
+and one update on the previous step's experience, loop.py:232-257] ->
+PE/OO geometry -> batched primitive execution -> counters -> auto-reset
+with a settle. In testing (env.is_testing=True, the serving path) the step
+makes no label and no update.
 
 The port has only the batched executor (no LoopConfig.executor) and the
 exact segmentation; its initial reset settles through the batched stepper
@@ -33,15 +34,12 @@ from smg_tpu_torch.policy.arbitrate import (
 )
 from smg_tpu_torch.train.trainer import Experience, Trainer, TrainerState
 
-TRAINING_NOT_PORTED = (
-    "train_step supports env.is_testing=True only: the training step "
-    "(labels, update, Adam) is the next slice of the PyTorch port")
-
 
 @dataclass(frozen=True)
 class LoopConfig:
     env: env.EnvConfig = field(default_factory=env.EnvConfig)
     batch_size: int = 8
+    explore_rate_decay: bool = False  # main.py:443
     reset_settle_steps: int = 100
     primitive: prim.PrimitiveParams = field(default_factory=prim.PrimitiveParams)
 
@@ -124,14 +122,9 @@ def blank_prev(B: int, device) -> PrevStep:
                     objects_number=zi)
 
 
-def _check_cfg(cfg: LoopConfig) -> None:
-    if not cfg.env.is_testing:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
-
-
 def init_loop(seed: int, trainer: Trainer, cfg: LoopConfig) -> LoopState:
-    """Fresh scenes and a seeded He-initialized online net (loop.py:166-181)."""
-    _check_cfg(cfg)
+    """Fresh scenes, a seeded He-initialized online net, its target copy
+    and a fresh optimizer (loop.py:166-181)."""
     device = trainer.device
     gen = torch.Generator(device=device).manual_seed(seed)
     scenes = env.reset(gen, cfg.batch_size, cfg.env, device)
@@ -145,13 +138,14 @@ def init_loop(seed: int, trainer: Trainer, cfg: LoopConfig) -> LoopState:
 
 def train_step(trainer: Trainer, cfg: LoopConfig, state: LoopState,
                timer=None):
-    """One testing-mode act step for the batch (loop.py:184-388).
+    """One step for the batch (loop.py:184-388): the act step, and out of
+    testing the delayed labels and update on the previous step.
 
     `timer`, when given, is a callable timer(phase_name) that the step
-    calls at the end of each phase (observe, score, geometry, execute,
-    reset) — chip_smoke.py uses it for the per-phase times.
+    calls at the end of each phase (observe, score, [label, update,]
+    geometry, execute, reset) — chip_smoke.py uses it for the per-phase
+    times.
     """
-    _check_cfg(cfg)
     mark = timer or (lambda name: None)
     B = cfg.batch_size
     ecfg = cfg.env
@@ -164,15 +158,35 @@ def train_step(trainer: Trainer, cfg: LoopConfig, state: LoopState,
     valid = obs.seg.valid
     mark("observe")
 
-    # --- Score with the online net, arbitrate greedily ---
+    # --- Score with the online net, arbitrate + explore (main.py:158-243) ---
     scores = trainer.score_scene_batch(state.trainer, scene_depths, masks, valid)
+    explore_prob = arb.explore_probability(
+        state.trainer.iteration, cfg.explore_rate_decay, ecfg.is_testing)
     choice = arb.select_action(
         scores.gra_conf, scores.suc_conf, scores.gs_conf, valid,
-        obs.seg.centers, method=ecfg.method, is_ets=ecfg.is_ets)
-    label_values = torch.zeros(B, device=dev)
-    reward_values = trainer.current_reward(state.prev.choice, state.prev.outcome)
-    loss = torch.zeros((), device=dev)
+        obs.seg.centers, method=ecfg.method, is_ets=ecfg.is_ets,
+        is_testing=ecfg.is_testing, explore_prob=explore_prob,
+        generator=state.generator)
     mark("score")
+
+    # --- Delayed training on the previous step (main.py:302-343) ---
+    last = state.prev
+    new_trainer = state.trainer
+    if ecfg.is_testing:
+        label_values = torch.zeros(B, device=dev)
+        reward_values = trainer.current_reward(last.choice, last.outcome)
+        loss = torch.zeros((), device=dev)
+    else:
+        if trainer.cfg.method == "reactive":
+            label_values = trainer.reactive_labels(last.choice, last.outcome).float()
+            reward_values = trainer.current_reward(last.choice, last.outcome)
+        else:
+            label_values, reward_values = trainer.dqn_labels(
+                state.trainer, last.choice, last.outcome, last.objects_number,
+                scene_depths, masks, choice)
+        mark("label")
+        new_trainer, loss = trainer.update(state.trainer, last.exp, label_values)
+        mark("update")
 
     # --- Geometry + execute (main.py:245-294, 384-396) ---
     geom = env.compute_geometry(choice, obs, ecfg)
@@ -243,7 +257,7 @@ def train_step(trainer: Trainer, cfg: LoopConfig, state: LoopState,
         exec_mask0=exec_mask[0], seg_masks0=masks[0],
         seg_boxes0=obs.seg.boxes[0], seg_valid0=valid[0],
     )
-    new_state = LoopState(scenes=scenes_next, trainer=state.trainer,
+    new_state = LoopState(scenes=scenes_next, trainer=new_trainer,
                           counters=counters_next, prev=prev,
                           generator=state.generator)
     return new_state, metrics

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `gpu`: they skip without a CUDA device (a CUDA kernel has no
-interpret mode). Small shapes; chip_smoke.py checks the act step's full
-shapes. This file imports neither jax nor smg_tpu, so it also runs where
+interpret mode). Small shapes; chip_smoke.py checks the act and training
+steps' full shapes. This file imports neither jax nor smg_tpu, so it also runs where
 JAX is absent — without the JAX-side conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -109,10 +109,73 @@ def test_stem_pool(dev, H):
     assert torch.equal(got, k4.bn_relu_maxpool_plain(y, a, b))
 
 
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-12))
+
+
+def _k6_operands(dev, g, c_in):
+    bf = torch.bfloat16
+    return ((torch.randn((c_in, 128), generator=g, device=dev) * c_in ** -0.5).to(bf),
+            torch.rand(c_in, generator=g, device=dev) + 0.5,
+            torch.rand(c_in, generator=g, device=dev) * 0.6 - 0.2,
+            (torch.randn((9, 128, 32), generator=g, device=dev) * 0.03).to(bf),
+            torch.rand(128, generator=g, device=dev) + 0.5,
+            torch.rand(128, generator=g, device=dev) * 0.6 - 0.2)
+
+
+@pytest.mark.parametrize("H,C_in,n", [(7, 64, 1), (7, 224, 5), (14, 64, 5),
+                                      (14, 224, 1)])
+def test_dense_layer_train(dev, H, C_in, n):
+    """K6a and K6b against their plain versions; K6b twice gives the same bits."""
+    from smg_tpu_torch.ops import dense_layer_train as k6
+
+    g = _gen(dev, C_in + n)
+    ld = C_in + 64                         # channels past the layer's stay put
+    buf = torch.randn((n, H, H, ld), generator=g, device=dev).to(torch.bfloat16)
+    w1, s1, b1, w2, s2, b2 = _k6_operands(dev, g, C_in)
+    ref = buf.clone()
+    before = k6.fwd_launches
+    h1, *moms = k6.layer_fwd(buf, C_in, w1, s1, b1, w2, s2, b2)
+    assert k6.fwd_launches == before + 1
+    rh1, *rmoms = k6.layer_fwd_plain(ref, C_in, w1, s1, b1, w2, s2, b2)
+    assert torch.equal(buf[..., :C_in], ref[..., :C_in])
+    assert torch.equal(buf[..., C_in + 32:], ref[..., C_in + 32:])
+    assert _rel(buf[..., C_in:C_in + 32], ref[..., C_in:C_in + 32]) <= TOL_BF16
+    assert _rel(h1, rh1) <= TOL_BF16
+    for got, want in zip(moms, rmoms):
+        assert got.shape == (n, want.shape[-1])
+        assert _rel(got, want) <= 1e-4
+
+    dbuf = torch.randn((n, H, H, ld), generator=g, device=dev)
+    runs = []
+    for _ in range(2):
+        d = dbuf.clone()
+        grads = k6.layer_bwd(buf, d, C_in, rh1, w1, w2, s1, b1, s2, b2, *rmoms)
+        torch.cuda.synchronize()
+        runs.append((d, grads))
+    d_plain = dbuf.clone()
+    want = k6.layer_bwd_plain(buf, d_plain, C_in, rh1, w1, w2, s1, b1, s2, b2, *rmoms)
+    (d, grads), (d2, grads2) = runs
+    assert torch.equal(d, d2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert torch.equal(d[..., C_in:], dbuf[..., C_in:])
+    assert _rel_l2(d[..., :C_in] - dbuf[..., :C_in],
+                   d_plain[..., :C_in] - dbuf[..., :C_in]) < 1e-2
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape
+        assert _rel_l2(got, w) < 1e-2
+
+
 def test_wrappers_reject_bad_operands(dev):
+    from smg_tpu_torch.ops import dense_layer_train as k6
     from smg_tpu_torch.ops import stem_pool as k4
 
     y = torch.zeros((1, 8, 8, 64), device=dev)        # float32, not bf16
     with pytest.raises(TypeError):
         k4.bn_relu_maxpool(y, torch.zeros(64, device=dev),
                            torch.zeros(64, device=dev))
+    ops = _k6_operands(dev, _gen(dev, 1), 64)
+    with pytest.raises(TypeError):
+        k6.layer_fwd(torch.zeros((1, 7, 7, 128), device=dev), 64, *ops)
+    with pytest.raises(ValueError):                   # no room for the 32 channels
+        k6.layer_fwd(torch.zeros((1, 7, 7, 64), device=dev, dtype=torch.bfloat16),
+                     64, *ops)

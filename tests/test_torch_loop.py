@@ -11,8 +11,8 @@ outcome and reward, the counters and the done flags, and the next scenes
 where no episode ended (a finished scene is re-spawned from each side's
 own RNG; float states to 1e-5 of each field's scale).
 
-Also: `import smg_tpu_torch` (and its whole act path) leaves jax out of
-sys.modules, and a non-testing config raises NotImplementedError.
+Also: `import smg_tpu_torch` (and its whole act and training path) leaves
+jax out of sys.modules.
 """
 
 import subprocess
@@ -101,7 +101,7 @@ def run_one_step():
     ptrainer = Trainer(TrainConfig(
         model=ModelConfig(method="reinforcement", input_size=224,
                           dtype="float32", block_config=SHALLOW),
-        method="reinforcement", scene_chunk=B))
+        method="reinforcement", scene_chunk=B), device="cpu")
     bridge.load_affordance_params(ptrainer.model, to_numpy_tree(params),
                                   to_numpy_tree(stats))
     pcfg = loop.LoopConfig(
@@ -192,23 +192,14 @@ def test_next_scenes(stepped):
     assert (got["t"][done] == 10).all()
 
 
-def test_training_config_raises(stepped):
-    import dataclasses
-
-    cfg = dataclasses.replace(stepped["pcfg"], env=dataclasses.replace(
-        stepped["pcfg"].env, is_testing=False))
-    with pytest.raises(NotImplementedError, match="training step"):
-        loop.train_step(stepped["ptrainer"], cfg, stepped["pstate0"])
-
-
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import smg_tpu_torch\n"
         "from smg_tpu_torch import bridge\n"
-        "from smg_tpu_torch.train import loop, prod_config\n"
+        "from smg_tpu_torch.train import loop, losses, prod_config, trainer\n"
         "from smg_tpu_torch.ops import _build, contact, dense_layer, "
-        "stem_pool, transition\n"
+        "dense_layer_train, stem_pool, transition\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'flax', 'smg_tpu.')) or m == 'smg_tpu')\n"
         "print(bad)\n"

@@ -98,3 +98,166 @@ def shallow_trunk_patch(monkeypatch, block_config, jdt):
         jaff, "make_trunk",
         lambda kind, dt=jdt, name=None: jdn.DenseNetTrunk(
             block_config=block_config, dtype=dt, name=name))
+
+
+# ---------------------------------------------------------------------------
+# The training step's parity tests (test_torch_train*.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_SHALLOW = (2, 2, 2, 2)
+TRAIN_S = 224
+
+# Running statistics agree to 5e-5 of max(1, |value|). The variance is
+# E[x^2] - E[x]^2 in f32 over up to 56 x 56 pixels, which cancels where
+# the mean is large against the spread; the two frameworks sum in other
+# orders, and the running average chains two passes. The tests measured
+# gaps up to 2.3e-5 (ROADMAP.md §3).
+STATS_TOL = 5e-5
+
+def shallow_train_patch(monkeypatch):
+    """Shallow float32 Flax trunks, and the JAX fast_train forward in
+    float32: fast_trunk.score_train computes in bf16 unless told otherwise,
+    whatever ModelConfig.dtype says (trainer.py:240-246). Test-local."""
+    import functools
+
+    import jax.numpy as jnp
+    from smg_tpu.models import fast_trunk as jft
+
+    shallow_trunk_patch(monkeypatch, TRAIN_SHALLOW, jnp.float32)
+    monkeypatch.setattr(jft, "score_train",
+                        functools.partial(jft.score_train, dtype=jnp.float32))
+
+
+def make_trainers(method="reinforcement", conv2="pk", jax_conv2="vjp", B=4,
+                  unroll="auto"):
+    """(JAX trainer, params, stats, port trainer) with the same weights, at
+    input 224 in float32 with shallow trunks (call shallow_train_patch
+    first). The JAX trainer takes the fast_train forward with jax_conv2
+    ('vjp' is pinned equal to 'pk' by the JAX package and compiles faster
+    in interpret mode). unroll="off" takes the JAX trainer's style-grouped
+    dispatch, which the JAX package pins equal to its CPU default of all
+    three styles per scene (tests/test_train.py::TestChunkedDispatch): one
+    styled trunk in the compiled program instead of three."""
+    from smg_tpu.models import affordance as jaff
+    from smg_tpu.train import trainer as jtr
+    from smg_tpu_torch.models.affordance import ModelConfig
+    from smg_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    jm = jaff.ModelConfig(method=method, input_size=TRAIN_S, dtype="float32")
+    jt = jtr.Trainer(jtr.TrainConfig(model=jm, method=method, scene_chunk=B,
+                                     fast_train="on", fast_train_conv2=jax_conv2,
+                                     unroll_styles=unroll))
+    variables = init_flax_all(jt.model, 128, jm.feature_hw, 0)
+    params = variables["params"]
+    stats = rand_stats(variables["batch_stats"], 0)
+    pt = Trainer(TrainConfig(
+        model=ModelConfig(method=method, input_size=TRAIN_S, dtype="float32",
+                          block_config=TRAIN_SHALLOW),
+        method=method, scene_chunk=B, fast_train_conv2=conv2), device="cpu")
+    reset_port(pt, params, stats)
+    return jt, params, stats, pt
+
+
+def reset_port(pt, params, stats):
+    """Both port nets back to the JAX weights, a fresh optimizer."""
+    from smg_tpu_torch import bridge
+
+    for net in (pt.model, pt.target):
+        bridge.load_affordance_params(net, to_numpy_tree(params), to_numpy_tree(stats))
+    pt.opt = pt.new_optimizer()
+
+
+def jax_trainer_state(jt, params, stats):
+    import jax.numpy as jnp
+    from smg_tpu.train import trainer as jtr
+
+    return jtr.TrainerState(params=params, batch_stats=stats, target_params=params,
+                            target_stats=stats, opt_state=jt.tx.init(params),
+                            iteration=jnp.asarray(0, jnp.int32))
+
+
+def to_port(a):
+    from smg_tpu_torch import bridge
+
+    return bridge.to_tensor(np.asarray(a))
+
+
+def flat_tree(tree, prefix=()):
+    """Nested dicts -> {path tuple: f32 numpy leaf}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, prefix + (k,)))
+        return out
+    return {prefix: np.asarray(tree, np.float32)}
+
+
+def rel_l2(got, ref, floor):
+    g = np.asarray(got, np.float32).ravel()
+    r = np.asarray(ref, np.float32).ravel()
+    return float(np.linalg.norm(g - r) / max(np.linalg.norm(r), floor))
+
+
+def leaf_gaps(got: dict, want: dict) -> dict:
+    """Relative L2 per leaf, floored at 1e-3 of the largest leaf norm
+    (tests/test_dense_layer_train_pallas.py:157-178)."""
+    assert got.keys() == want.keys()
+    gmax = max(float(np.linalg.norm(v)) for v in want.values())
+    assert gmax > 0
+    return {k: rel_l2(got[k], want[k], 1e-3 * gmax) for k in want}
+
+
+def assert_grads(got: dict, want: dict, tol: float = 2e-3):
+    for k, err in leaf_gaps(got, want).items():
+        assert err < tol, f"grad {'/'.join(k)}: rel L2 {err:.2e}"
+
+
+# A ReLU network's gradient jumps where a pre-activation lies within f32
+# rounding of zero: there are ~1e7 pre-activations in the shallow trunks
+# at 224, so a few dozen sit within ~1e-6 of zero, and two computations
+# that sum in other orders put some of them on other sides. One flipped
+# element moves its BatchNorm bias gradient by ~1/sqrt(pixels) of a
+# channel, and the change flows into every layer below. The JAX package's
+# own two forms of the same function (its Flax autodiff and its fast_train
+# path) part by as much on some cases. So a gradient bound is the
+# tolerance asked for, or WITNESS_FACTOR times the gap that JAX's own two
+# forms show on the same case, whichever is larger.
+WITNESS_FACTOR = 3.0
+
+
+def witness_tol(tol: float, jax_gap: float) -> float:
+    return max(tol, WITNESS_FACTOR * jax_gap)
+
+
+def stats_gaps(got: dict, want: dict) -> dict:
+    """Largest |difference| per statistics leaf, over max(1, |value|)."""
+    assert got.keys() == want.keys()
+    return {k: float(np.abs(got[k] - want[k]).max()) / max(1.0, float(np.abs(want[k]).max()))
+            for k in want}
+
+
+def assert_stats(got: dict, want: dict, tol: float = STATS_TOL):
+    for k, err in stats_gaps(got, want).items():
+        assert err <= tol, f"stats {'/'.join(k)}: {err:.2e}"
+
+
+def port_grads(model) -> dict:
+    """The port model's .grad of every parameter, Flax paths and layouts."""
+    from smg_tpu_torch import bridge
+
+    out = {}
+    for path, p, conv in bridge.param_slots(model):
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        out[path] = bridge.to_flax(g, conv)
+    return out
+
+
+def train_images(seed, n, S=TRAIN_S):
+    """n random depth maps (S, S) and one rectangular exec mask each."""
+    rng = np.random.RandomState(seed)
+    depth = (rng.rand(n, S, S) * 0.06).astype(np.float32)
+    mask = np.zeros((n, S, S), bool)
+    for b in range(n):
+        y, x = rng.randint(30, 150, 2)
+        mask[b, y:y + 45, x:x + 60] = True
+    return depth, mask
