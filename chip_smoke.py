@@ -8,10 +8,13 @@
 3. One phase per kernel: the kernel against its plain PyTorch version on
    the card, at the shapes the main paths give it — K1 at B = 32 and 1024,
    K2 at every (H, C_in) of DenseNet-121 at 224, K3 at its three shapes,
-   K4 at the stem, K6a/K6b (the train-mode dense layer, forward and
-   backward) at every (H, C_in) with 64 images — with each kernel's and
-   plain version's median time from CUDA events and the least time the
-   card could take for the same work (bound_ms, from the shapes); and K6
+   K4 at the stem, K5 (the `xla_pk` conv2) at every (H, C_in) at 224 and
+   at 640 with 104 images, K6a/K6b (the train-mode dense layer, forward and
+   backward) at every (H, C_in) with 64 images, K7 (the `pallas` dense
+   block) on the four blocks at 224 and at 640 with 104 images, both
+   epilogues, taps_packed True and False — with each kernel's and plain
+   version's median time from CUDA events and the least time the card
+   could take for the same work (bound_ms, from the shapes); and K6
    composed over each whole dense block against its plain walk.
 4. The act path: make_prod_trainer(32) + make_prod_loop_cfg(32) with
    is_testing=True, init_loop with the seeded He init, then act steps,
@@ -24,7 +27,16 @@
    'conv' (autograd) against 'pk' on the same experience and weights
    (times, losses), and on 8 of its scenes the update's gradients through
    K6 against K6's plain versions on the CPU and against a float32 update.
-6. Prints the kernel table as one JSON line, the card line, and last
+6. The eval backends' path: the decision-parity entry point
+   (smg_tpu_torch/cli/decision_parity.py) on 8 rendered scenes (104 images
+   per trunk call) for the backends xla_fl, xla_pk and pallas x 3 styles at
+   input 224 and 640, each score held to the module eval forward in float32
+   (the oracle) by the decided-argmax rule (at 640 its tolerance witnessed
+   by the bf16 module forward, see the entry point), with each kernel's
+   launch count; then one 104-image
+   trunk pass per backend and size, timed, its features within 5% of the
+   oracle's largest |value|.
+7. Prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 
 Options: `--out DIR` writes the details (chip_smoke.json, and with
@@ -69,6 +81,8 @@ TOL_GRAD = 1e-2
 # phase_dense_block_train, from one forward.
 UPDATE_SCENES = 8
 TRUTH_RATIO = 1.5
+DP_SCENES = 8         # the decision-parity path: 8 x (1 + 12) = STREAMS images
+SIZES = (224, 640)    # the trunk's input sizes (ModelConfig.input_size)
 DETAIL = {}
 
 # The card's published peaks (H100 SXM, dense, at 700 W): the bound of a
@@ -77,7 +91,15 @@ DETAIL = {}
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 HBM_RATE = 3.35e12
-DENSENET_BLOCKS = ((56, 64, 6), (28, 128, 12), (14, 256, 24), (7, 512, 16))
+
+
+def densenet_blocks(size: int):
+    """(H, C0, L) of DenseNet-121's four dense blocks at input `size`."""
+    return tuple((size // (4 << i), c0, L)
+                 for i, (c0, L) in enumerate(((64, 6), (128, 12), (256, 24), (512, 16))))
+
+
+DENSENET_BLOCKS = densenet_blocks(224)
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -322,6 +344,171 @@ def phase_stem(dev):
                       3.0 * n_in + 9.0 * n_out, 2.0 * (n_in + n_out) + 8.0 * 64, PEAK_F32)
 
 
+def phase_conv2(dev):
+    """K5 at all 58 layer shapes of DenseNet-121 at 224 and at 640 with 104
+    images (one trunk pass of the `xla_pk` backend at each input size), each
+    written at its channel offset of a block buffer as the trunk does; per
+    block also the plain variant's own (N, H, W, 32) output and the merge
+    wrapper (pend kept). The table's times are the 224 pass's; at 640 the
+    kernel alone is timed."""
+    from smg_tpu_torch.ops import conv2 as k5
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    bf, N = torch.bfloat16, STREAMS
+    worst, tot_ms, tot_plain, rows = 0.0, {}, 0.0, []
+    flops = nbytes = 0.0
+    for S in SIZES:
+        tot_ms[S] = 0.0
+        for H, C0, L in densenet_blocks(S):
+            buf = torch.zeros((N, H, H, C0 + 32 * L), dtype=bf, device=dev)
+            for l in range(L):
+                c_in = C0 + 32 * l
+                h1 = torch.randn((N, H, H, 128), generator=gen, device=dev).to(bf)
+                a, b = _bn(gen, 128, dev)
+                w2 = (torch.randn((9, 128, 32), generator=gen, device=dev)
+                      * (2 / 1152) ** 0.5).to(bf)
+                out = buf[..., c_in:c_in + 32]
+                k5.conv2_bn_relu(h1, a, b, w2, out=out)
+                want = k5.conv2_bn_relu_plain(h1, a, b, w2)
+                err = rel_err(out, want)
+                check(err <= TOL_BF16, f"K5 {S} H={H} C_in={c_in}: rel err {err:.5f}")
+                err_abs = float((out.float() - want.float()).abs().max())
+                row = {"input": S, "H": H, "C_in": c_in, "rel_err": err,
+                       "max_abs_err": err_abs,
+                       "ms": cuda_ms(lambda: k5.conv2_bn_relu(h1, a, b, w2, out=out),
+                                     reps=5)}
+                tot_ms[S] += row["ms"]
+                worst = max(worst, err_abs)
+                if S == 224:
+                    row["plain_ms"] = cuda_ms(lambda: k5.conv2_bn_relu_plain(h1, a, b, w2),
+                                              reps=2, warmup=1)
+                    tot_plain += row["plain_ms"]
+                    P = N * H * H
+                    flops += 2.0 * P * 1152 * 32
+                    nbytes += 2.0 * P * (128 + 32) + 2.0 * 1152 * 32 + 8.0 * 128
+                rows.append(row)
+            own = k5.conv2_bn_relu(h1, a, b, w2)
+            pend = torch.randn((N, H, H, 128), generator=gen, device=dev).to(bf)
+            merged = k5.conv2_bn_relu_merge(h1, pend, a, b, w2, 32)
+            errs = (rel_err(own, want), rel_err(merged[..., 32:64], want))
+            check(max(errs) <= TOL_BF16, f"K5 {S} H={H} plain / merge variant: {errs}")
+            check(torch.equal(merged[..., :32], pend[..., :32])
+                  and torch.equal(merged[..., 64:], pend[..., 64:]),
+                  f"K5 {S} H={H}: the merge variant changed the kept lanes")
+            print(f"K5 conv2 {S}: H={H} C_in {C0}..{C0 + 32 * (L - 1)} ({N} images): "
+                  f"worst rel err {max(r['rel_err'] for r in rows if r['H'] == H):.5f}, "
+                  f"plain / merge variant {errs[0]:.5f} / {errs[1]:.5f} "
+                  f"(bound {TOL_BF16:.5f})")
+            del buf, h1, pend, merged, own, want
+    DETAIL["K5"] = rows
+    DETAIL["K5_pass_ms"] = tot_ms
+    print(f"K5 one xla_pk trunk pass (58 layers, {N} images): kernel {tot_ms[224]:.3f} ms "
+          f"at 224 (plain {tot_plain:.3f} ms), {tot_ms[640]:.3f} ms at 640")
+    return with_bound({"name": "K5 conv2 BN/ReLU/3x3", "route": "cuda",
+                       "source": "smg_tpu_torch/csrc/conv2.cu",
+                       "replaces": "smg_tpu/ops/conv2_pallas.py:243",
+                       "max_abs_err": worst, "ms": tot_ms[224], "plain_ms": tot_plain,
+                       "library_ms": None}, flops, nbytes, PEAK_BF16)
+
+
+def _eval_layers(gen, dev, C0, L):
+    """Random operands of L eval dense layers (c_in, a1, b1, w1, a2, b2, w2)."""
+    bf, layers = torch.bfloat16, []
+    for l in range(L):
+        c = C0 + 32 * l
+        a1, b1 = _bn(gen, c, dev)
+        a2, b2 = _bn(gen, 128, dev)
+        w1 = (torch.randn((c, 128), generator=gen, device=dev) * (2 / c) ** 0.5).to(bf)
+        w2 = (torch.randn((9, 128, 32), generator=gen, device=dev) * (2 / 1152) ** 0.5).to(bf)
+        layers.append((c, a1, b1, w1, a2, b2, w2))
+    return layers
+
+
+def _block_work(N, H, C0, L, epilogue):
+    """(flops, bytes) a dense block and its epilogue need: the products, and
+    the block input read, the epilogue output written and the weights."""
+    P, Cf = N * H * H, C0 + 32 * L
+    flops = sum(2.0 * P * (C0 + 32 * l) * 128 + 2.0 * P * 1152 * 32 for l in range(L))
+    weights = sum(2.0 * ((C0 + 32 * l) * 128 + 1152 * 32) + 8.0 * (C0 + 32 * l + 128)
+                  for l in range(L)) + 8.0 * Cf
+    if epilogue == "transition":
+        flops += 2.0 * (P / 4) * Cf * (Cf / 2)
+        out, weights = (P / 4) * (Cf / 2), weights + 2.0 * Cf * (Cf / 2)
+    else:
+        out = P * Cf
+    return flops, 2.0 * P * C0 + 2.0 * out + weights
+
+
+def phase_dense_block(dev):
+    """K7 on the four dense blocks of DenseNet-121 at 224 and at 640 with
+    104 images (blocks 1-3 with the transition epilogue, block 4 with
+    norm5), with taps_packed True (the trunk's) and False: the epilogue
+    output and the appended channels against the plain version. The
+    table's times are the 224 pass's; at 640 the kernel alone is timed."""
+    from smg_tpu_torch.ops import dense_block as k7
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bf, N = torch.bfloat16, STREAMS
+    worst, tot_ms, tot_plain, rows = 0.0, {S: 0.0 for S in SIZES}, 0.0, []
+    flops = nbytes = 0.0
+    for S in SIZES:
+        for i, (H, C0, L) in enumerate(densenet_blocks(S)):
+            Cf = C0 + 32 * L
+            packed = k7.pack_dense_block(_eval_layers(gen, dev, C0, L))
+            at, bt = _bn(gen, Cf, dev)
+            if i == 3:
+                epilogue, ep = "final_bn", k7.pack_final_bn(at, bt)
+            else:
+                wt = (torch.randn((Cf, Cf // 2), generator=gen, device=dev)
+                      * Cf ** -0.5).to(bf)
+                epilogue, ep = "transition", k7.pack_transition(at, bt, wt)
+            x = torch.randn((N, H, H, C0), generator=gen, device=dev).to(bf)
+            for taps_packed in (True, False):
+                buf = torch.zeros((N, H, H, Cf), dtype=bf, device=dev)
+                buf[..., :C0] = x
+                ref = buf.clone()
+                got = k7.dense_block_apply(buf, packed, ep, epilogue,
+                                           taps_packed=taps_packed)
+                want = k7.dense_block_apply_plain(ref, packed, ep, epilogue, taps_packed)
+                errs = (rel_err(got, want), rel_err(buf[..., C0:], ref[..., C0:]))
+                check(torch.equal(buf[..., :C0], x), f"K7 {S} H={H}: block input changed")
+                check(max(errs) <= TOL_BF16, f"K7 {S} H={H} {epilogue} taps_packed="
+                      f"{taps_packed}: rel err (output, appended channels) {errs}")
+                err_abs = float((got.float() - want.float()).abs().max())
+                worst = max(worst, err_abs)
+                row = {"input": S, "images": N, "H": H, "C0": C0, "layers": L,
+                       "epilogue": epilogue, "taps_packed": taps_packed,
+                       "rel_err": errs[0], "appended_rel_err": errs[1],
+                       "max_abs_err": err_abs}
+                timed = ""
+                if taps_packed:
+                    row["ms"] = cuda_ms(lambda: k7.dense_block_apply(
+                        buf, packed, ep, epilogue, out=got), reps=3, warmup=1)
+                    tot_ms[S] += row["ms"]
+                    timed = f"; kernel {row['ms']:.3f} ms"
+                if taps_packed and S == 224:
+                    row["plain_ms"] = cuda_ms(lambda: k7.dense_block_apply_plain(
+                        ref, packed, ep, epilogue), reps=1, warmup=1)
+                    tot_plain += row["plain_ms"]
+                    f, nb = _block_work(N, H, C0, L, epilogue)
+                    flops, nbytes = flops + f, nbytes + nb
+                    timed += f", plain {row['plain_ms']:.3f} ms"
+                rows.append(row)
+                print(f"K7 dense block {S}: {H}x{H}, {C0} -> {Cf}, {N} images, {epilogue}, "
+                      f"taps_packed {taps_packed}: rel err {errs[0]:.5f}, appended "
+                      f"channels {errs[1]:.5f} (bound {TOL_BF16:.5f}){timed}")
+                del buf, ref, got, want
+    DETAIL["K7"] = rows
+    DETAIL["K7_pass_ms"] = tot_ms
+    print(f"K7 one pallas trunk pass (4 blocks, {N} images): kernel {tot_ms[224]:.3f} ms "
+          f"at 224 (plain {tot_plain:.3f} ms), {tot_ms[640]:.3f} ms at 640")
+    return with_bound({"name": "K7 dense block", "route": "cuda",
+                       "source": "smg_tpu_torch/csrc/dense_block.cu",
+                       "replaces": "smg_tpu/ops/dense_block_pallas.py:456",
+                       "max_abs_err": worst, "ms": tot_ms[224], "plain_ms": tot_plain,
+                       "library_ms": None}, flops, nbytes, PEAK_BF16)
+
+
 def _k6_layer(gen, dev, c_in):
     """Random operands of one train-mode dense layer: kernel-layout bf16
     weights and f32 BatchNorm scale/bias."""
@@ -504,15 +691,23 @@ def phase_dense_block_train(dev):
 
 def launch_counters():
     """kernel name -> (module, counter attribute) of every wrapper."""
-    from smg_tpu_torch.ops import (contact, dense_layer, dense_layer_train,
-                                   stem_pool, transition)
+    from smg_tpu_torch.ops import (contact, conv2, dense_block, dense_layer,
+                                   dense_layer_train, stem_pool, transition)
 
     return {"K1 contact sweep": (contact, "launches"),
             "K2 dense layer": (dense_layer, "launches"),
             "K3 transition": (transition, "launches"),
             "K4 stem BN/ReLU/maxpool": (stem_pool, "launches"),
+            "K5 conv2 BN/ReLU/3x3": (conv2, "launches"),
             "K6a train dense layer fwd": (dense_layer_train, "fwd_launches"),
-            "K6b train dense layer bwd": (dense_layer_train, "bwd_launches")}
+            "K6b train dense layer bwd": (dense_layer_train, "bwd_launches"),
+            "K7 dense block": (dense_block, "launches")}
+
+# The kernels each main path must launch (the act path's, the training
+# path's and the decision-parity path's).
+ACT_KERNELS = ("K1", "K2", "K3", "K4")
+TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K6a", "K6b")
+PARITY_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K7")
 
 
 def zero_counts():
@@ -578,7 +773,7 @@ def drive_act_path(dev, kernels):
               + f"  success {successes[-1]:.3f}")
     torch.cuda.synchronize()
     counts = read_counts()
-    act_kernels = [k for k in kernels if not k["name"].startswith("K6")]
+    act_kernels = [k for k in kernels if k["name"].split()[0] in ACT_KERNELS]
     for k in act_kernels:
         k["launches"] = counts[k["name"]]
     print("launches in the act path: " + ", ".join(
@@ -654,7 +849,9 @@ def drive_train_path(dev, kernels):
         k["launches_train"] = counts[k["name"]]
         if k["name"].startswith("K6"):
             k["launches"] = counts[k["name"]]
-        check(counts[k["name"]] > 0, f"{k['name']} was not launched by the training path")
+        if k["name"].split()[0] in TRAIN_KERNELS:
+            check(counts[k["name"]] > 0,
+                  f"{k['name']} was not launched by the training path")
     DETAIL["train_path"] = {"launches": counts, "init_s": init_s, "steps": steps}
     DETAIL["update_modes"] = compare_update_modes(trainer, state)
 
@@ -765,6 +962,108 @@ def compare_update_modes(trainer, state):
             "subset_scenes": UPDATE_SCENES, "kernel_vs_plain_rel_l2": kp,
             "to_f32_rel_l2": to_f32, "pk_vs_conv_rel_l2": pk_conv,
             "subset_losses": {k: v[0] for k, v in runs.items()}, "cpu_plain_s": cpu_s}
+
+
+def drive_decision_parity(dev, kernels):
+    """The eval backends' main path: the decision-parity entry point's
+    check (smg_tpu_torch/cli/decision_parity.py) for every backend and
+    style at input 224 and 640, on DP_SCENES rendered scenes (one trunk call
+    of 8 x (1 + 12) = 104 images per score), from rendering to the rule,
+    with the counts set to 0 just before and read just after. Returns
+    {input size: (model, the 104 trunk inputs)} for phase_trunk_passes."""
+    from smg_tpu_torch.cli import decision_parity as dp
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masked, obj_depth, valid = dp.render(DP_SCENES, dev)
+    check(DP_SCENES * (1 + obj_depth.shape[1]) == STREAMS,
+          f"{obj_depth.shape[1]} object slots: not {STREAMS} images per trunk call")
+    runs, detail, failed = {}, {}, []
+    for S in SIZES:
+        model, oracle = dp.make_models(S, SEED, dev)
+        scene_imgs, mask_imgs = dp.prepare(masked, obj_depth, S)
+        res = dp.evaluate(model, oracle, scene_imgs, mask_imgs, valid)
+        for (backend, style), r in res.items():
+            rule = (f"{dp.WITNESS_FACTOR} x the bf16 module forward's "
+                    f"{r['witness_err_over_spread']:.3f}, at least the rule's {dp.TOL_FRAC}; "
+                    f"strict rule {'holds' if r['strict_ok'] else 'fails'}"
+                    if r["witness_bound"] else
+                    f"the rule's; the bf16 module forward reads "
+                    f"{r['witness_err_over_spread']:.3f}")
+            print(f"decision parity {S} {backend} style {style}: per-object err "
+                  f"{r['per_object_err']:.4f} = {r['err_over_spread']:.3f} x the spread "
+                  f"{r['max_spread']:.4f} (bound {r['tol_frac']:.3f}: {rule}); largest "
+                  f"|value| {r['oracle_max_abs']:.4f}; decided {r['decided']}/{r['scenes']} "
+                  f"({r['decided_multi']} with 2+ objects: argmax "
+                  f"{'tested' if r['argmax_tested'] else 'not tested, informational'}), "
+                  f"argmax agree {r['argmax_agree']}/{r['scenes']}, flips on decided "
+                  f"{r['flips_on_decided']}: {'ok' if r['ok'] else 'FAILED'}")
+            if not r["ok"]:
+                failed.append((S, backend, style))
+        rate = (sum(r["argmax_agree"] for r in res.values())
+                / sum(r["scenes"] for r in res.values()))
+        print(f"decision parity {S}: argmax agreement rate {rate:.4f} over "
+              f"{len(res)} backend x style runs")
+        detail[S] = {"argmax_agreement_rate": rate,
+                     "runs": {f"{b}/{s}": r for (b, s), r in res.items()}}
+        runs[S] = (model, oracle, torch.cat([scene_imgs, mask_imgs.flatten(0, 1)]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"decision-parity path ({seconds:.1f} s), launches: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in counts.items()))
+    for k in kernels:
+        k["launches_parity"] = counts[k["name"]]
+        if k["name"].split()[0] in ("K5", "K7"):
+            k["launches"] = counts[k["name"]]
+        if k["name"].split()[0] in PARITY_KERNELS:
+            check(counts[k["name"]] > 0,
+                  f"{k['name']} was not launched by the decision-parity path")
+    DETAIL["decision_parity"] = {"launches": counts, "seconds": seconds, **detail}
+    return runs, failed
+
+
+def phase_trunk_passes(runs):
+    """One 104-image trunk_features_eval per backend at 224 and 640 (the
+    decision-parity model's grasp trunk on its inputs): CUDA-event ms, and
+    the features against the module eval forward's in float32 (the
+    oracle's) within 5% of its largest |value|, as
+    tests/test_fast_trunk.py:150-168 holds the JAX backends; relative L2
+    reported, and the bf16 module forward's own gap beside them."""
+    from smg_tpu_torch.models import fast_trunk
+
+    rows, failed = [], []
+    for S, (model, oracle, x) in runs.items():
+        trunk = model.grasp_trunk
+        with torch.no_grad():
+            ref = oracle.grasp_trunk(x).float()
+            o_ms = cuda_ms(lambda: trunk(x), reps=3, warmup=1)
+            own = trunk(x).float()
+        check(float(ref.std(dim=(0, 1, 2)).max()) > 1e-2, f"{S}: degenerate oracle")
+        own_err = float((own - ref).abs().max() / ref.abs().max())
+        own_l2 = float((own - ref).norm() / ref.norm())
+        print(f"trunk pass {S}: the bf16 module forward ({o_ms:.3f} ms) vs the float32 "
+              f"oracle: max err {own_err:.4f} of the largest, rel L2 {own_l2:.4f}")
+        rows.append({"input": S, "backend": "module forward bf16", "ms": o_ms,
+                     "max_rel_err": own_err, "rel_l2": own_l2})
+        for backend in fast_trunk.BACKENDS:
+            with torch.no_grad():
+                got = fast_trunk.trunk_features_eval(trunk, x, backend).float()
+                ms = cuda_ms(lambda: fast_trunk.trunk_features_eval(trunk, x, backend),
+                             reps=5, warmup=1)
+            check(got.shape == ref.shape and _finite(got), f"{S} {backend}: features")
+            err = float((got - ref).abs().max() / ref.abs().max())
+            l2 = float((got - ref).norm() / ref.norm())
+            rows.append({"input": S, "backend": backend, "images": x.shape[0], "ms": ms,
+                         "max_rel_err": err, "rel_l2": l2})
+            print(f"trunk pass {S} {backend} ({x.shape[0]} images): {ms:.3f} ms; vs the "
+                  f"float32 oracle: max err {err:.4f} of the largest (bound 0.05), "
+                  f"rel L2 {l2:.4f}")
+            if not err < 0.05:
+                failed.append((S, backend, err))
+    DETAIL["trunk_passes"] = rows
+    check(not failed, f"trunk features off the oracle: {failed}")
 
 
 def profile_act_step(trainer, cfg, state, step_seconds, out_dir):
@@ -903,8 +1202,9 @@ def main(argv):
     DETAIL["build_seconds"] = build_s
     DETAIL["build_log"] = _build.build_log
 
-    kernels = [phase_contact(dev), phase_dense_layer(dev),
-               phase_transition(dev), phase_stem(dev), *phase_dense_layer_train(dev)]
+    kernels = [phase_contact(dev), phase_dense_layer(dev), phase_transition(dev),
+               phase_stem(dev), phase_conv2(dev), *phase_dense_layer_train(dev),
+               phase_dense_block(dev)]
     phase_dense_block_train(dev)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -913,6 +1213,10 @@ def main(argv):
         profile_act_step(trainer, cfg, state, step_seconds, args.out)
     del trainer, state
     drive_train_path(dev, kernels)
+    runs, parity_failed = drive_decision_parity(dev, kernels)
+    phase_trunk_passes(runs)
+    check(not parity_failed,
+          f"decision parity failed for (input, backend, style) {parity_failed}")
 
     DETAIL["card"] = card
     DETAIL["kernels"] = kernels

@@ -1,7 +1,7 @@
 // Shared device helpers of the port's kernels: bf16 packing, an affine
 // without FMA contraction (so the kernels round where the plain PyTorch
 // versions do), and three tensor-core building blocks shared by the dense
-// layer kernels (K2 eval, K6 train): a tiled bf16 GEMM with a fused
+// layer kernels (K2, K5, K7 eval; K6 train): a tiled bf16 GEMM with a fused
 // prologue (the A operand is computed while it is loaded) and a fused
 // epilogue; a 3x3 128 -> 32 convolution over a computed source; and a
 // split-K A^T B product for weight gradients.
@@ -163,8 +163,10 @@ gemm_bf16_kernel(Loader loader, const bf16* __restrict__ Bm, int ldb, int M,
 // written at channel offset c_off of an NHWC buffer with pixel stride ld.
 //   The source rows come from `src.load8(pixel, c8)` (8 packed bf16
 //   channels, any prologue math); pixels off the image contribute exact
-//   zeros. Each tap's 128-channel partial is rounded to bf16 before the
-//   f32 tap sum, as the TPU kernels' packed-taps products are.
+//   zeros. With RoundTaps (the default) each tap's 128-channel partial is
+//   rounded to bf16 before the f32 tap sum, as the TPU kernels'
+//   packed-taps products are; without it each tap's f32 partial is summed
+//   as it is (K7's taps_packed=False).
 //   64-pixel tiles, 4 warps of 16 pixels, WMMA m16n16k16 bf16 -> f32.
 // ---------------------------------------------------------------------------
 
@@ -175,7 +177,7 @@ constexpr int C3_THREADS = 128;           // 4 warps x 16 pixels
 constexpr int C3_LDA = C3_CIN + 8;        // rows 272 B apart
 constexpr int C3_LDB = C3_COUT + 8;       // rows 80 B apart
 
-template <class Src>
+template <class Src, bool RoundTaps = true>
 __global__ void __launch_bounds__(C3_THREADS)
 conv3x3_kernel(Src src, const bf16* __restrict__ w2, bf16* __restrict__ out,
                int N, int H, int W, int ld, int c_off) {
@@ -241,7 +243,7 @@ conv3x3_kernel(Src src, const bf16* __restrict__ w2, bf16* __restrict__ out,
     for (int f = 0; f < 2; ++f)
 #pragma unroll
       for (int q = 0; q < part[f].num_elements; ++q)
-        total[f].x[q] += round_bf16(part[f].x[q]);
+        total[f].x[q] += RoundTaps ? round_bf16(part[f].x[q]) : part[f].x[q];
     __syncthreads();
   }
 

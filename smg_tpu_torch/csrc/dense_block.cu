@@ -1,0 +1,203 @@
+// K7: a whole eval-mode DenseNet dense block and its fused epilogue.
+//
+// Replaces smg_tpu/ops/dense_block_pallas.py::dense_block_apply (Pallas
+// _block_kernel, dense_block_pallas.py:229-403), the `pallas` eval
+// backend. The block's NHWC buffer (P = N*H*W pixels, Cf = C0 + 32 L
+// channels) holds the block input in channels [0, C0); layer l reads the
+// prefix [0, C) with C = C0 + 32 l and writes its 32 channels at [C, C + 32):
+//
+//   y1  = bf16( relu(x a1 + b1) )
+//   t   = y1 @ w1                  one f32 accumulation over all C channels;
+//                                  t is NOT rounded (unlike K2's h1)
+//   h2  = bf16( relu(t a2 + b2) ), zero outside the image
+//   new = bf16( sum_tap p_tap ),  p_tap = bf16(h2-shift @ w2[tap]) when
+//         taps_packed (:323-339), the f32 product otherwise (:340-351)
+//
+// then the epilogue over the full buffer (:374-403):
+//   transition: hs = bf16(relu(feat at + bt)); a 2x2 pool in bf16
+//     arithmetic (row-pair sum, rounded; column-pair sum, rounded; x 0.25);
+//     out = bf16(pooled @ wt) with f32 accumulation, written at pixel
+//     stride out_ld (a channel slice of the next block's buffer);
+//   final_bn: out = bf16(feat at + bt), no ReLU (norm5).
+//
+// What bounds it on the H100: the function reads the block input and
+// writes the epilogue output (~125 MB per 104-image pass at 224 for the
+// four blocks) but does the whole trunk's dense-layer and transition
+// products, ~4.95 GFLOP per image: operations, ~0.52 ms per pass at the
+// bf16 tensor peak. The TPU kernel kept each image's block buffer in VMEM
+// (with row bands and an L-row halo where it did not fit). On Hopper one
+// image's buffer at 224 is 1.6 / 0.8 / 0.4 / 0.1 MB for blocks 1-4 and
+// 13 MB for block 1 at 640, and only block 4 at 224 fits one SM's 227 KB
+// of shared memory. So this first design keeps the buffer in device memory
+// (L2 holds 50 MB) and runs the layers inside the one call as 2 L + 1
+// launches on the caller's stream: per layer the shared tiled GEMM
+// (common.cuh) with norm1 + ReLU in its loader and norm2 + ReLU on the
+// unrounded f32 accumulator in its epilogue (h2 to a bf16 scratch), then
+// common.cuh's 3x3 kernel writing the 32 channels in place; then one
+// epilogue kernel (the GEMM with the BN/ReLU/bf16-pool loader, or an
+// elementwise norm5). The TPU's B_tile, row bands, halo, width and channel
+// padding and selection-matrix append have no counterpart: every launch
+// masks its own edges, for any N, H, W. Per-image residency in shared
+// memory (clusters' distributed shared memory for blocks 2-3), wgmma and
+// TMA are later work.
+
+#include "common.cuh"
+
+namespace {
+
+using smg::bf16;
+
+constexpr int BOTTLENECK = 128;
+constexpr int GROWTH = 32;
+constexpr int EPILOGUE_TRANSITION = 0;
+constexpr int EPILOGUE_FINAL_BN = 1;
+
+// y1 = relu(x a1 + b1) of the block buffer's prefix (rounded when staged).
+struct BnReluLoader {
+  const bf16* x;   // block buffer (P, ld)
+  const float* a;
+  const float* b;
+  int ld;
+  __device__ void load8(int p, int k, float* v) const {
+    float xv[8];
+    smg::unpack8(*reinterpret_cast<const uint4*>(x + (size_t)p * ld + k), xv);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[c] = smg::bn_relu(xv[c], a[k + c], b[k + c]);
+  }
+};
+
+// h2 = bf16(relu(t a2 + b2)) on the f32 accumulator t, not rounded first.
+struct Bn2F32Epilogue {
+  bf16* h2;        // (P, 128)
+  const float* a2;
+  const float* b2;
+  __device__ void store8(int p, int col, const float* v) const {
+    float o[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[c] = smg::bn_relu(v[c], a2[col + c], b2[col + c]);
+    *reinterpret_cast<uint4*>(h2 + (size_t)p * BOTTLENECK + col) = smg::pack8(o);
+  }
+};
+
+struct H2Rows {
+  const bf16* h2;  // (P, 128)
+  __device__ uint4 load8(int p, int c8) const {
+    return *reinterpret_cast<const uint4*>(h2 + (size_t)p * BOTTLENECK + c8);
+  }
+};
+
+// The transition's A operand at pooled pixel q: hs = bf16(relu(x at + bt))
+// at (2i, 2j), (2i+1, 2j), (2i, 2j+1), (2i+1, 2j+1); the row pairs summed
+// and rounded, then the column pair, rounded, times 0.25 (exact).
+struct PoolBf16Loader {
+  const bf16* x;   // (N, H, W, ld)
+  const float* a;
+  const float* b;
+  int H, W, ld;
+  __device__ void load8(int q, int k, float* v) const {
+    const int Wo = W / 2, Ho = H / 2;
+    const int j = q % Wo;
+    const int t = q / Wo;
+    const int i = t % Ho;
+    const int n = t / Ho;
+    const size_t row0 = ((size_t)n * H + 2 * i) * W + 2 * j;  // (2i, 2j)
+    const size_t row1 = row0 + W;                              // (2i+1, 2j)
+    float h00[8], h10[8], h01[8], h11[8];
+    smg::unpack8(*reinterpret_cast<const uint4*>(x + row0 * ld + k), h00);
+    smg::unpack8(*reinterpret_cast<const uint4*>(x + row1 * ld + k), h10);
+    smg::unpack8(*reinterpret_cast<const uint4*>(x + (row0 + 1) * ld + k), h01);
+    smg::unpack8(*reinterpret_cast<const uint4*>(x + (row1 + 1) * ld + k), h11);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float av = a[k + c], bv = b[k + c];
+      const float s0 = smg::round_bf16(
+          __fadd_rn(smg::round_bf16(smg::bn_relu(h00[c], av, bv)),
+                    smg::round_bf16(smg::bn_relu(h10[c], av, bv))));
+      const float s1 = smg::round_bf16(
+          __fadd_rn(smg::round_bf16(smg::bn_relu(h01[c], av, bv)),
+                    smg::round_bf16(smg::bn_relu(h11[c], av, bv))));
+      v[c] = __fmul_rn(smg::round_bf16(__fadd_rn(s0, s1)), 0.25f);
+    }
+  }
+};
+
+struct StoreEpilogue {
+  bf16* out;   // (Q, out_ld), columns [0, C_out)
+  int out_ld;
+  __device__ void store8(int row, int col, const float* v) const {
+    *reinterpret_cast<uint4*>(out + (size_t)row * out_ld + col) = smg::pack8(v);
+  }
+};
+
+// norm5: out = bf16(x a + b), 8 channels per thread.
+__global__ void final_bn_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
+                                const float* __restrict__ b, bf16* __restrict__ out,
+                                long long P, int C, int ld, int out_ld) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int groups = C / 8;
+  if (i >= P * groups) return;
+  const long long p = i / groups;
+  const int c = (int)(i % groups) * 8;
+  float v[8];
+  smg::unpack8(*reinterpret_cast<const uint4*>(x + p * ld + c), v);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v[q] = smg::affine(v[q], a[c + q], b[c + q]);
+  *reinterpret_cast<uint4*>(out + p * out_ld + c) = smg::pack8(v);
+}
+
+template <bool RoundTaps>
+cudaError_t conv3x3(const bf16* h2, const bf16* w2, bf16* buf, int N, int H, int W,
+                    int ld, int c_off, cudaStream_t stream) {
+  const int P = N * H * W;
+  smg::conv3x3_kernel<H2Rows, RoundTaps>
+      <<<(P + smg::C3_BM - 1) / smg::C3_BM, smg::C3_THREADS, 0, stream>>>(
+          H2Rows{h2}, w2, buf, N, H, W, ld, c_off);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// a1, b1: the L layers' norm1 affines concatenated (sum_l C_l); w1: their
+// (C_l, 128) bottleneck weights stacked row-wise; a2, b2 (L, 128); w2
+// (L, 9, 128, 32); at, bt (Cf,); wt (Cf, C_out) for the transition (unused
+// by final_bn); h2 scratch (P, 128).
+extern "C" int smg_dense_block(bf16* buf, const float* a1, const float* b1,
+                               const bf16* w1, const float* a2, const float* b2,
+                               const bf16* w2, const float* at, const float* bt,
+                               const bf16* wt, bf16* h2, bf16* out, int N, int H,
+                               int W, int C0, int L, int C_out, int out_ld,
+                               int epilogue, int taps_packed, cudaStream_t stream) {
+  const int P = N * H * W;
+  const int Cf = C0 + GROWTH * L;
+  if (P == 0) return (int)cudaGetLastError();
+  size_t off = 0;
+  for (int l = 0; l < L; ++l) {
+    const int c_in = C0 + GROWTH * l;
+    dim3 grid((P + smg::GEMM_BM - 1) / smg::GEMM_BM, BOTTLENECK / smg::GEMM_BN);
+    smg::gemm_bf16_kernel<<<grid, smg::GEMM_THREADS, 0, stream>>>(
+        BnReluLoader{buf, a1 + off, b1 + off, Cf}, w1 + off * BOTTLENECK, BOTTLENECK, P,
+        c_in, Bn2F32Epilogue{h2, a2 + (size_t)l * BOTTLENECK, b2 + (size_t)l * BOTTLENECK});
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const bf16* w2l = w2 + (size_t)l * 9 * BOTTLENECK * GROWTH;
+    err = taps_packed ? conv3x3<true>(h2, w2l, buf, N, H, W, Cf, c_in, stream)
+                      : conv3x3<false>(h2, w2l, buf, N, H, W, Cf, c_in, stream);
+    if (err != cudaSuccess) return (int)err;
+    off += c_in;
+  }
+  if (epilogue == EPILOGUE_TRANSITION) {
+    const int Q = N * (H / 2) * (W / 2);
+    dim3 grid((Q + smg::GEMM_BM - 1) / smg::GEMM_BM, C_out / smg::GEMM_BN);
+    if (Q > 0)
+      smg::gemm_bf16_kernel<<<grid, smg::GEMM_THREADS, 0, stream>>>(
+          PoolBf16Loader{buf, at, bt, H, W, Cf}, wt, C_out, Q, Cf,
+          StoreEpilogue{out, out_ld});
+  } else if (epilogue == EPILOGUE_FINAL_BN) {
+    const long long n = (long long)P * (Cf / 8);
+    final_bn_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(buf, at, bt, out, P, Cf,
+                                                                     Cf, out_ld);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

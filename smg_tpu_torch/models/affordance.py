@@ -4,7 +4,8 @@ Three DenseNet-121 trunks (grasp / suction / grasp-then-suction) and three
 heads; style 2 reads the suction head, as the reference does
 (models.py:144; the JAX package's default tied_ets_head=True). Eval scoring
 runs through models/fast_trunk.py::score_eval, the update's train-mode
-forward through ::score_train. The JAX options no caller
+forward through ::score_train; `AffordanceNet.score` is the module eval
+forward, the oracle they are held to. The JAX options no caller
 sets (the tiny trunk, num_rotations > 1, an untied ETS head) are not
 ported.
 """
@@ -24,7 +25,9 @@ from smg_tpu_torch.models.densenet import (
     BN_EPS,
     BN_MOMENTUM,
     DenseNetTrunk,
+    bn_eval,
     he_init_,
+    no_tf32,
 )
 
 DEPTH_MEAN = 0.02
@@ -65,6 +68,17 @@ class AffordanceHead(nn.Module):
         self.norm1 = nn.BatchNorm2d(64, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.conv1 = nn.Conv2d(64, num_out, feature_hw, bias=False)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The module eval forward (affordance.py:83-99): (B, h, w, C) NHWC
+        in the working dtype -> (B, num_out) f32."""
+        dt = x.dtype
+        with no_tf32():
+            h = torch.relu(bn_eval(x.permute(0, 3, 1, 2), self.norm0, dt))
+            h = F.conv2d(h, self.conv0.weight.to(dt))
+            h = torch.relu(bn_eval(h, self.norm1, dt))
+            h = F.conv2d(h, self.conv1.weight.to(dt))
+        return h.reshape(h.shape[0], -1).float()
+
 
 class AffordanceNet(nn.Module):
     """The three-style two-stream affordance model."""
@@ -91,11 +105,29 @@ class AffordanceNet(nn.Module):
         return (self.grasp_head, self.suction_head, self.gs_head)[style]
 
     @torch.no_grad()
-    def score_eval(self, scene_img, mask_imgs, style: int) -> torch.Tensor:
+    def score_eval(self, scene_img, mask_imgs, style: int,
+                   backend: str = "xla_fl") -> torch.Tensor:
         """Eval scores (B, M, num_out) f32; scene features shared across
-        the M object slots (affordance.py:132-165)."""
+        the M object slots (affordance.py:132-165). backend: see
+        fast_trunk.trunk_features_eval."""
         return fast_trunk.score_eval(self.trunk(style), self.head(style),
-                                     scene_img, mask_imgs, self.cfg.num_out)
+                                     scene_img, mask_imgs, self.cfg.num_out, backend)
+
+    @torch.no_grad()
+    def score(self, scene_img, mask_imgs, style: int) -> torch.Tensor:
+        """The module eval forward of the scores, the oracle of score_eval:
+        Flax `model.apply(..., train=False, method=AffordanceNet.score)`
+        (affordance.py:132-165) through DenseNetTrunk.forward and
+        AffordanceHead.forward. (B, S, S, 3), (B, M, S, S, 3) -> (B, M,
+        num_out) f32."""
+        B, M = mask_imgs.shape[:2]
+        mask_flat = mask_imgs.reshape((B * M,) + mask_imgs.shape[2:])
+        feats = self.trunk(style)(torch.cat([scene_img, mask_flat]))
+        scene_feat, mask_feat = feats[:B], feats[B:]
+        h, w, c = scene_feat.shape[1:]
+        scene_rep = scene_feat[:, None].expand(B, M, h, w, c).reshape(B * M, h, w, c)
+        out = self.head(style)(torch.cat([scene_rep, mask_feat], dim=-1))
+        return out.reshape(B, M, -1)
 
     def score_train(self, scene_img, mask_img, style: int, conv2: str = "conv"):
         """Train-mode scores of n scenes with one exec mask each, per-image

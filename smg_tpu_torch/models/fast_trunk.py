@@ -1,7 +1,8 @@
 """Trunk and head forward over the port's kernels: eval and train mode.
 
-Port of smg_tpu/models/fast_trunk.py. The eval half (trunk_features_eval
-on the `xla_fl` path, head_eval, score_eval), per trunk call:
+Port of smg_tpu/models/fast_trunk.py. The eval half (trunk_features_eval,
+head_eval, score_eval) has three backends, under the JAX package's names.
+`xla_fl`, the default and the trainer's, per trunk call:
 
 - stem: conv0 as one gray tap (the input is a triplicated depth map, so
   conv(x, W) == conv(x[..., :1], W.sum(in)) — fast_trunk.py:39-40), then
@@ -12,6 +13,10 @@ on the `xla_fl` path, head_eval, score_eval), per trunk call:
 - transitions: K3 writes into the next block's buffer;
 - norm5 and the head's two matmuls stay plain torch, as they were XLA in
   the JAX package (fast_trunk.py:372-381, :966-983).
+
+`xla_pk` differs in the dense layers: a plain grouped bottleneck, then K5
+(BN2, ReLU, 3x3) writes the 32 channels. `pallas` runs the stem in its XLA
+form and each dense block, with its transition or norm5, as one K7 call.
 
 Eval BatchNorm folds to an f32 affine a = scale * rsqrt(var + 1e-5),
 b = bias - mean * a (dense_block_pallas.py:147-151). Compute runs in the
@@ -37,12 +42,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from smg_tpu_torch.models.densenet import BN_EPS, BN_MOMENTUM, GROWTH_RATE, DenseNetTrunk
+from smg_tpu_torch.models.densenet import (BN_EPS, BN_MOMENTUM, GROWTH_RATE, DenseNetTrunk,
+                                          backend_flag)
+from smg_tpu_torch.ops import conv2 as k5
+from smg_tpu_torch.ops import dense_block as k7
 from smg_tpu_torch.ops import dense_layer as k2
 from smg_tpu_torch.ops import dense_layer_train as k6
 from smg_tpu_torch.ops import stem_pool as k4
 from smg_tpu_torch.ops import transition as k3
 
+BACKENDS = ("xla_fl", "xla_pk", "pallas")
+GROUP = 128   # the bottleneck's contraction groups under `xla_pk`
 TRAIN_CONV2 = ("conv", "pk")
 _KEEP = 1.0 - BN_MOMENTUM   # Flax's running-average retention, 0.9
 
@@ -58,38 +68,66 @@ def _param_key(module: torch.nn.Module):
                  for t in list(module.parameters()) + list(module.buffers()))
 
 
-def trunk_operands(trunk: DenseNetTrunk) -> dict:
-    """Kernel-layout operands of a trunk, cached until a parameter or
+def _cached(trunk: DenseNetTrunk, attr: str, build):
+    """build(trunk), cached on the trunk under `attr` until a parameter or
     buffer changes (in place or by reassignment)."""
     key = _param_key(trunk)
-    cache = getattr(trunk, "_eval_operands", None)
+    cache = getattr(trunk, attr, None)
     if cache is not None and cache[0] == key:
         return cache[1]
-    dt = trunk.dtype
     with torch.no_grad():
-        ops = {"kg": trunk.conv0.weight.sum(dim=1, keepdim=True).to(dt),
-               "stem": fold_bn(trunk.norm0), "norm5": fold_bn(trunk.norm5),
-               "blocks": [], "transitions": []}
-        for i, L in enumerate(trunk.block_config):
-            block = getattr(trunk, f"denseblock{i + 1}")
-            layers = []
-            for l in range(L):
-                lay = getattr(block, f"denselayer{l + 1}")
-                c_in = lay.conv1.in_channels
-                a1, b1 = fold_bn(lay.norm1)
-                a2, b2 = fold_bn(lay.norm2)
-                w1 = lay.conv1.weight.reshape(-1, c_in).t().contiguous().to(dt)
-                w2 = (lay.conv2.weight.permute(2, 3, 1, 0)
-                      .reshape(9, lay.conv2.in_channels, -1).contiguous().to(dt))
-                layers.append((c_in, a1, b1, w1, a2, b2, w2))
-            ops["blocks"].append(layers)
-            if i < len(trunk.block_config) - 1:
-                tr = getattr(trunk, f"transition{i + 1}")
-                a, b = fold_bn(tr.norm)
-                wt = tr.conv.weight.reshape(tr.conv.out_channels, -1).t()
-                ops["transitions"].append((a, b, wt.contiguous().to(dt)))
-    trunk._eval_operands = (key, ops)
+        value = build(trunk)
+    setattr(trunk, attr, (key, value))
+    return value
+
+
+def _build_operands(trunk: DenseNetTrunk) -> dict:
+    dt = trunk.dtype
+    ops = {"kg": trunk.conv0.weight.sum(dim=1, keepdim=True).to(dt),
+           "stem": fold_bn(trunk.norm0), "norm5": fold_bn(trunk.norm5),
+           "blocks": [], "transitions": []}
+    for i, L in enumerate(trunk.block_config):
+        block = getattr(trunk, f"denseblock{i + 1}")
+        layers = []
+        for l in range(L):
+            lay = getattr(block, f"denselayer{l + 1}")
+            c_in = lay.conv1.in_channels
+            a1, b1 = fold_bn(lay.norm1)
+            a2, b2 = fold_bn(lay.norm2)
+            w1 = lay.conv1.weight.reshape(-1, c_in).t().contiguous().to(dt)
+            w2 = (lay.conv2.weight.permute(2, 3, 1, 0)
+                  .reshape(9, lay.conv2.in_channels, -1).contiguous().to(dt))
+            layers.append((c_in, a1, b1, w1, a2, b2, w2))
+        ops["blocks"].append(layers)
+        if i < len(trunk.block_config) - 1:
+            tr = getattr(trunk, f"transition{i + 1}")
+            a, b = fold_bn(tr.norm)
+            wt = tr.conv.weight.reshape(tr.conv.out_channels, -1).t()
+            ops["transitions"].append((a, b, wt.contiguous().to(dt)))
     return ops
+
+
+def trunk_operands(trunk: DenseNetTrunk) -> dict:
+    """Kernel-layout operands of a trunk (cached)."""
+    return _cached(trunk, "_eval_operands", _build_operands)
+
+
+def _build_block_operands(trunk: DenseNetTrunk) -> list:
+    ops = trunk_operands(trunk)
+    blocks = []
+    for i, layers in enumerate(ops["blocks"]):
+        if i < len(ops["blocks"]) - 1:
+            ep, epilogue = k7.pack_transition(*ops["transitions"][i]), "transition"
+        else:
+            ep, epilogue = k7.pack_final_bn(*ops["norm5"]), "final_bn"
+        blocks.append((k7.pack_dense_block(layers), ep, epilogue))
+    return blocks
+
+
+def block_operands(trunk: DenseNetTrunk) -> list:
+    """K7's operands of a trunk, (packed block, epilogue operands,
+    epilogue) per dense block (cached)."""
+    return _cached(trunk, "_block_operands", _build_block_operands)
 
 
 def _stem_conv(x: torch.Tensor, kg: torch.Tensor) -> torch.Tensor:
@@ -101,8 +139,101 @@ def _stem_conv(x: torch.Tensor, kg: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def trunk_features_eval(trunk: DenseNetTrunk, x: torch.Tensor) -> torch.Tensor:
-    """(N, S, S, 3) preprocessed input -> (N, S/32, S/32, C_final)."""
+def _product(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y @ w with f32 accumulation, rounded once to y's dtype. On the card
+    this is cuBLAS, whose bf16 reduction stays f32 only inside
+    _f32_reduction()."""
+    if y.device.type == "cpu":
+        return (y.float() @ w.float()).to(y.dtype)
+    return y @ w
+
+
+def _f32_reduction():
+    """allow_bf16_reduced_precision_reduction = False inside (PyTorch's
+    default is True: cuBLAS may then reduce split-K partials in bf16)."""
+    return backend_flag(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+
+
+def _bottleneck(buf: torch.Tensor, c_in: int, a1, b1, w1) -> torch.Tensor:
+    """BN -> ReLU -> 1x1(128) of the prefix [0, c_in) of buf (N, H, W, ld),
+    plain PyTorch as it was XLA outside any kernel (_dense_bottleneck,
+    fast_trunk.py:164-201): one product per 128-channel group from channel
+    0; when there is more than one group, each product is rounded to the
+    working dtype and they are summed in f32. Returns h1 rounded to the
+    working dtype, (N, H, W, 128)."""
+    dt = buf.dtype
+    x = buf[..., :c_in].reshape(-1, c_in)
+    h1 = None
+    for g in range(0, c_in, GROUP):
+        e = min(g + GROUP, c_in)
+        y = torch.relu(x[:, g:e].float() * a1[g:e] + b1[g:e]).to(dt)
+        t = _product(y, w1[g:e]).float()
+        h1 = t if h1 is None else h1 + t
+    return h1.to(dt).reshape(buf.shape[:3] + (-1,))
+
+
+def _dense_block_pk(buf: torch.Tensor, layers) -> None:
+    """The `xla_pk` dense block, in place: per layer the bottleneck, then K5
+    writes the 32 channels at the layer's offset (the merge variant where
+    the TPU's width allowed it, _dense_block_pk_merge, fast_trunk.py:204-236;
+    the plain variant elsewhere, :106-115: one kernel here)."""
+    for c_in, a1, b1, w1, a2, b2, w2 in layers:
+        h1 = _bottleneck(buf, c_in, a1, b1, w1)
+        k5.conv2_bn_relu(h1, a2, b2, w2, out=buf[..., c_in:c_in + GROWTH_RATE])
+
+
+def _stem_xla(x: torch.Tensor, ops: dict) -> torch.Tensor:
+    """The stem in its XLA form (fast_trunk.py:50-59), for the `pallas`
+    backend: gray-tap conv0, f32 affine, ReLU, rounding, then a 3x3 / s2
+    max pool with -inf padding."""
+    y = _stem_conv(x, ops["kg"])
+    a0, b0 = ops["stem"]
+    y = torch.relu(y.float() * a0 + b0).to(y.dtype)
+    return F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
+
+
+def _trunk_pallas(trunk: DenseNetTrunk, x: torch.Tensor):
+    """The `pallas` backend (fast_trunk.py:382-401): the XLA-form stem, then
+    one K7 call per dense block; blocks 1-3 end in the transition
+    epilogue, written into the next block's buffer, block 4 in norm5."""
+    dt = trunk.dtype
+    cfg = trunk.block_config
+    y = _stem_xla(x, trunk_operands(trunk))
+    N, H, W, C = y.shape
+    buf = torch.empty((N, H, W, C + GROWTH_RATE * cfg[0]), dtype=dt, device=x.device)
+    buf[..., :C] = y
+    for i, (packed, ep, epilogue) in enumerate(block_operands(trunk)):
+        out = None
+        if epilogue == "transition":
+            c_out = ep["wt"].shape[1]
+            H, W = H // 2, W // 2
+            nxt = torch.empty((N, H, W, c_out + GROWTH_RATE * cfg[i + 1]), dtype=dt,
+                              device=x.device)
+            out = nxt[..., :c_out]
+        res = k7.dense_block_apply(buf, packed, ep, epilogue, out=out)
+        if out is not None:
+            buf = nxt
+    return res
+
+
+def trunk_features_eval(trunk: DenseNetTrunk, x: torch.Tensor,
+                        backend: str = "xla_fl") -> torch.Tensor:
+    """(N, S, S, 3) preprocessed input -> (N, S/32, S/32, C_final).
+
+    backend (the JAX package's names, fast_trunk.py:337-401):
+      "xla_fl"  K4 stem, K2 per dense layer, K3 transitions (the trainer's);
+      "xla_pk"  K4 stem, per dense layer the plain bottleneck then K5, K3
+                transitions;
+      "pallas"  the XLA-form stem, then K7 per dense block with its
+                transition or norm5 epilogue.
+    norm5 stays plain on the xla backends. The JAX-only lowerings ("xla",
+    "xla_conv", "xla_s2d") have no kernel and are not ported.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "pallas":
+        return _trunk_pallas(trunk, x)
     ops = trunk_operands(trunk)
     dt = trunk.dtype
     y = _stem_conv(x, ops["kg"])
@@ -113,8 +244,12 @@ def trunk_features_eval(trunk: DenseNetTrunk, x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     k4.bn_relu_maxpool(y, *ops["stem"], out=buf[..., :C])
     for i, layers in enumerate(ops["blocks"]):
-        for c_in, a1, b1, w1, a2, b2, w2 in layers:
-            k2.dense_layer(buf, c_in, a1, b1, w1, a2, b2, w2)
+        if backend == "xla_fl":
+            for c_in, a1, b1, w1, a2, b2, w2 in layers:
+                k2.dense_layer(buf, c_in, a1, b1, w1, a2, b2, w2)
+        else:
+            with _f32_reduction():
+                _dense_block_pk(buf, layers)
         if i < len(cfg) - 1:
             a, b, wt = ops["transitions"][i]
             c_out = wt.shape[1]
@@ -143,13 +278,13 @@ def head_eval(head, x: torch.Tensor, num_out: int) -> torch.Tensor:
 
 
 def score_eval(trunk, head, scene_img: torch.Tensor, mask_imgs: torch.Tensor,
-               num_out: int) -> torch.Tensor:
+               num_out: int, backend: str = "xla_fl") -> torch.Tensor:
     """Eval AffordanceNet.score (fast_trunk.py:986-1014): one trunk call
     over the scene + masked streams, scene features broadcast across the
     M object slots, head on the concatenated features. -> (B, M, num_out)."""
     B, M = mask_imgs.shape[:2]
     mask_flat = mask_imgs.reshape((B * M,) + mask_imgs.shape[2:])
-    feats = trunk_features_eval(trunk, torch.cat([scene_img, mask_flat], 0))
+    feats = trunk_features_eval(trunk, torch.cat([scene_img, mask_flat], 0), backend)
     scene_feat, mask_feat = feats[:B], feats[B:]
     h, w, c = scene_feat.shape[1:]
     scene_rep = scene_feat[:, None].expand(B, M, h, w, c).reshape(B * M, h, w, c)

@@ -11,6 +11,9 @@ the plain version; a CUDA tensor launches the kernel or raises.
   stem_pool    K4  stem BN/ReLU/maxpool       <- ops/stem_pool_pallas.py
   transition   K3  BN/ReLU/avgpool/1x1        <- ops/transition_pallas.py
   dense_layer  K2  fused eval dense layer     <- ops/dense_layer_pallas.py
+  conv2        K5  eval BN2/ReLU/3x3 on h1    <- ops/conv2_pallas.py
+  dense_block  K7  whole eval dense block     <- ops/dense_block_pallas.py
+                   + transition / norm5 epilogue
   dense_layer_train
                K6  train dense layer, forward <- ops/dense_layer_train_pallas.py
                    and backward (two counters: fwd_launches, bwd_launches)

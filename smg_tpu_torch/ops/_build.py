@@ -43,6 +43,11 @@ SIGNATURES = {
     "smg_transition": [P, P, P, P, P, I, I, I, I, I, I, I, P],
     # buf, a1, b1, w1, a2, b2, w2, h2 scratch; N, H, W, ld, C_in; stream
     "smg_dense_layer": [P] * 8 + [I, I, I, I, I, P],
+    # h1, a, b, w2, out; N, H, W, out_ld; stream
+    "smg_conv2_bn_relu": [P] * 5 + [I] * 4 + [P],
+    # buf, a1, b1, w1, a2, b2, w2, at, bt, wt, h2 scratch, out;
+    # N, H, W, C0, L, C_out, out_ld, epilogue, taps_packed; stream
+    "smg_dense_block": [P] * 12 + [I] * 9 + [P],
     # buf, w1, s1, bi1, w2, s2, bi2, h1, st1, st2; N, H, W, ld, C_in; stream
     "smg_dense_layer_train_fwd": [P] * 10 + [I] * 5 + [P],
     # buf, dbuf, h1, w1t, w2t, s1, bi1, mean1, var1, s2, bi2, mean2, var2,

@@ -24,15 +24,11 @@ counterpart here.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from smg_tpu_torch.ops import _build
+from smg_tpu_torch.ops.conv2 import BOTTLENECK, GROWTH, N_TAPS, conv3x3_plain
 
 launches = 0
-
-BOTTLENECK = 128
-GROWTH = 32
-N_TAPS = 9
 
 
 def dense_layer_plain(buf, c_in, a1, b1, w1, a2, b2, w2):
@@ -44,14 +40,7 @@ def dense_layer_plain(buf, c_in, a1, b1, w1, a2, b2, w2):
     h = torch.relu(x * a1 + b1).to(dt).float().reshape(-1, c_in)
     h1 = (h @ w1.float()).to(dt).float()
     h2 = torch.relu(h1 * a2 + b2).to(dt).float().reshape(N, H, W, BOTTLENECK)
-    hp = F.pad(h2, (0, 0, 1, 1, 1, 1))
-    acc = torch.zeros((N * H * W, GROWTH), dtype=torch.float32,
-                      device=buf.device)
-    for tap in range(N_TAPS):
-        dy, dx = divmod(tap, 3)
-        part = hp[:, dy:dy + H, dx:dx + W].reshape(-1, BOTTLENECK) @ w2[tap].float()
-        acc = acc + part.to(dt).float()
-    buf[..., c_in:c_in + GROWTH] = acc.reshape(N, H, W, GROWTH).to(dt)
+    buf[..., c_in:c_in + GROWTH] = conv3x3_plain(h2, w2, dt).to(dt)
     return buf
 
 

@@ -47,12 +47,27 @@ class ActionChoice(_Batched):
     exploit_action: torch.Tensor  # (B,) int32
 
 
+def _pow_f32(base: float, n: int) -> torch.Tensor:
+    """base ** n for an integer n >= 0 by square-and-multiply in float32,
+    as XLA computes a float power with an integer exponent."""
+    r = torch.tensor(1.0, dtype=torch.float32)
+    b = torch.tensor(base, dtype=torch.float32)
+    while n:
+        if n & 1:
+            r = r * b
+        b = b * b
+        n >>= 1
+    return r
+
+
 def explore_probability(iteration: int, decay: bool, is_testing: bool) -> float:
-    """Parity: reference main.py:78,345 (arbitrate.py:55-62)."""
+    """Parity: reference main.py:78,345 (arbitrate.py:55-62): the decay
+    max(0.5 * 0.9998^iteration, 0.1) in float32, as the JAX package
+    computes it."""
     if is_testing:
         return 0.0
     if decay:
-        return max(0.5 * 0.9998 ** int(iteration), 0.1)
+        return float(torch.clamp(0.5 * _pow_f32(0.9998, int(iteration)), min=0.1))
     return 0.5
 
 

@@ -109,6 +109,77 @@ def test_stem_pool(dev, H):
     assert torch.equal(got, k4.bn_relu_maxpool_plain(y, a, b))
 
 
+def _affine(g, dev, c):
+    return (torch.rand(c, generator=g, device=dev) + 0.5,
+            torch.rand(c, generator=g, device=dev) * 0.6 - 0.2)
+
+
+@pytest.mark.parametrize("H,W,ld,c_off", [(7, 7, 160, 96), (8, 12, 128, 64),
+                                          (5, 9, 32, 0)])
+def test_conv2(dev, H, W, ld, c_off):
+    """K5 writes 32 channels at a channel offset of a wider NHWC buffer
+    (the block buffer) and leaves the others; the merge wrapper too."""
+    from smg_tpu_torch.ops import conv2 as k5
+
+    g = _gen(dev, H * W + ld)
+    bf = torch.bfloat16
+    h1 = torch.randn((3, H, W, 128), generator=g, device=dev).to(bf)
+    a, b = _affine(g, dev, 128)
+    w2 = (torch.randn((9, 128, 32), generator=g, device=dev) * 0.03).to(bf)
+    buf = torch.randn((3, H, W, ld), generator=g, device=dev).to(bf)
+    ref = buf.clone()
+    before = k5.launches
+    k5.conv2_bn_relu(h1, a, b, w2, out=buf[..., c_off:c_off + 32])
+    assert k5.launches == before + 1
+    want = k5.conv2_bn_relu_plain(h1, a, b, w2)
+    assert _rel(buf[..., c_off:c_off + 32], want) <= TOL_BF16
+    assert torch.equal(buf[..., :c_off], ref[..., :c_off])
+    assert torch.equal(buf[..., c_off + 32:], ref[..., c_off + 32:])
+    pend = torch.randn((3, H, W, 128), generator=g, device=dev).to(bf)
+    merged = k5.conv2_bn_relu_merge(h1, pend, a, b, w2, 64)
+    assert k5.launches == before + 2
+    assert _rel(merged[..., 64:96], want) <= TOL_BF16
+    assert torch.equal(merged[..., :64], pend[..., :64])
+    assert torch.equal(merged[..., 96:], pend[..., 96:])
+
+
+@pytest.mark.parametrize("H,W,C0,L,epilogue,taps_packed", [
+    (8, 6, 64, 2, "transition", True), (8, 6, 64, 2, "transition", False),
+    (7, 7, 128, 3, "final_bn", True), (7, 5, 96, 2, "final_bn", False)])
+def test_dense_block(dev, H, W, C0, L, epilogue, taps_packed):
+    """K7 against its plain version: the appended channels in the block
+    buffer and the epilogue's output, written into a channel slice."""
+    from smg_tpu_torch.ops import dense_block as k7
+
+    g = _gen(dev, H * W + C0 + L)
+    bf = torch.bfloat16
+    layers = [(c,) + _affine(g, dev, c)
+              + ((torch.randn((c, 128), generator=g, device=dev) * c ** -0.5).to(bf),)
+              + _affine(g, dev, 128)
+              + ((torch.randn((9, 128, 32), generator=g, device=dev) * 0.03).to(bf),)
+              for c in (C0 + 32 * l for l in range(L))]
+    Cf = C0 + 32 * L
+    at, bt = _affine(g, dev, Cf)
+    if epilogue == "transition":
+        wt = (torch.randn((Cf, 128), generator=g, device=dev) * Cf ** -0.5).to(bf)
+        ep, out_shape = k7.pack_transition(at, bt, wt), (2, H // 2, W // 2, 128)
+    else:
+        ep, out_shape = k7.pack_final_bn(at, bt), (2, H, W, Cf)
+    packed = k7.pack_dense_block(layers)
+    buf = torch.randn((2, H, W, Cf), generator=g, device=dev).to(bf)
+    ref = buf.clone()
+    nxt = torch.zeros(out_shape[:3] + (out_shape[3] + 32,), dtype=bf, device=dev)
+    before = k7.launches
+    got = k7.dense_block_apply(buf, packed, ep, epilogue, taps_packed=taps_packed,
+                               out=nxt[..., :out_shape[3]])
+    assert k7.launches == before + 1
+    want = k7.dense_block_apply_plain(ref, packed, ep, epilogue, taps_packed)
+    assert torch.equal(buf[..., :C0], ref[..., :C0])
+    assert _rel(buf[..., C0:], ref[..., C0:]) <= TOL_BF16
+    assert _rel(got, want) <= TOL_BF16
+    assert not nxt[..., out_shape[3]:].any()
+
+
 def _rel_l2(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-12))
 

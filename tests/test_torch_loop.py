@@ -198,8 +198,9 @@ def test_port_imports_no_jax():
         "import smg_tpu_torch\n"
         "from smg_tpu_torch import bridge\n"
         "from smg_tpu_torch.train import loop, losses, prod_config, trainer\n"
-        "from smg_tpu_torch.ops import _build, contact, dense_layer, "
-        "dense_layer_train, stem_pool, transition\n"
+        "from smg_tpu_torch.ops import _build, contact, conv2, dense_block, "
+        "dense_layer, dense_layer_train, stem_pool, transition\n"
+        "from smg_tpu_torch.cli import decision_parity\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'flax', 'smg_tpu.')) or m == 'smg_tpu')\n"
         "print(bad)\n"

@@ -101,6 +101,120 @@ def shallow_trunk_patch(monkeypatch, block_config, jdt):
 
 
 # ---------------------------------------------------------------------------
+# The eval kernels' parity tests (test_torch_{trunk,conv2,dense_block,
+# trunk_backends}.py)
+# ---------------------------------------------------------------------------
+
+# A kernel's plain version against the Pallas kernel in interpret mode:
+# max |err| <= 2^-6 of the largest |value|. Both sides round to bf16 at the
+# same points; their f32 sums run in other orders, so an element may land
+# one bf16 step (2^-8 relative) apart, which a downstream rounding can
+# double; XLA on the CPU may also keep excess precision between fused bf16
+# operations (xla_allow_excess_precision), e.g. across K7's bf16 pool adds.
+KERNEL_TOL = 2.0 ** -6
+
+
+def bn_np(rng, c):
+    """Flax BatchNorm params and alive statistics of c channels."""
+    p = {"scale": rng.uniform(0.5, 1.5, c), "bias": rng.uniform(0.05, 0.4, c)}
+    s = {"mean": rng.uniform(-0.1, 0.1, c), "var": rng.uniform(0.5, 1.5, c)}
+    f = lambda d: {k: v.astype(np.float32) for k, v in d.items()}  # noqa: E731
+    return f(p), f(s)
+
+
+def fold_np(p, s):
+    """Eval BatchNorm folded to the f32 affine (a, b) the kernels take."""
+    a = p["scale"] / np.sqrt(s["var"] + 1e-5)
+    return (torch.as_tensor(a.astype(np.float32)),
+            torch.as_tensor((p["bias"] - s["mean"] * a).astype(np.float32)))
+
+
+def bf16_np(x):
+    """x rounded to bf16, as float32 numpy."""
+    import jax.numpy as jnp
+
+    return np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+def assert_kernel_close(got, want, name, tol=KERNEL_TOL):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = float(np.abs(want).max())
+    assert scale > 1e-3, f"{name}: degenerate case"
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= tol, f"{name}: max err {err:.5f} of scale {scale:.3f}"
+
+
+def flax_block(rng, C0, L):
+    """Flax params / stats of a DenseBlock of L layers on C0 channels."""
+    bp, bs = {}, {}
+    for i in range(L):
+        c = C0 + 32 * i
+        n1p, n1s = bn_np(rng, c)
+        n2p, n2s = bn_np(rng, 128)
+        bp[f"denselayer{i + 1}"] = {
+            "norm1": n1p, "norm2": n2p,
+            "conv1": {"kernel": (rng.randn(1, 1, c, 128) * (2 / c) ** 0.5)
+                      .astype(np.float32)},
+            "conv2": {"kernel": (rng.randn(3, 3, 128, 32) * (2 / 1152) ** 0.5)
+                      .astype(np.float32)},
+        }
+        bs[f"denselayer{i + 1}"] = {"norm1": n1s, "norm2": n2s}
+    return bp, bs
+
+
+def block_layers(bp, bs, dtype=torch.bfloat16):
+    """The port's per-layer kernel operands (c_in, a1, b1, w1 (c_in, 128),
+    a2, b2, w2 (9, 128, 32)) of a flax_block, weights in dtype."""
+    layers = []
+    for i in range(len(bp)):
+        n = f"denselayer{i + 1}"
+        p, s = bp[n], bs[n]
+        c_in = p["conv1"]["kernel"].shape[2]
+        a1, b1 = fold_np(p["norm1"], s["norm1"])
+        a2, b2 = fold_np(p["norm2"], s["norm2"])
+        w1 = torch.as_tensor(p["conv1"]["kernel"].reshape(c_in, 128)).to(dtype)
+        w2 = torch.as_tensor(p["conv2"]["kernel"].reshape(9, 128, 32)).to(dtype)
+        layers.append((c_in, a1, b1, w1, a2, b2, w2))
+    return layers
+
+
+def models(monkeypatch, dtype: str, block_config, input_size, seed=0):
+    """(flax model, variables, port model) with the same weights and alive
+    statistics; a shallow block_config patches the Flax trunks test-locally."""
+    import jax.numpy as jnp
+    from smg_tpu.models import affordance as jaff
+    from smg_tpu_torch import bridge
+    from smg_tpu_torch.models import affordance as aff
+    from smg_tpu_torch.models import densenet as tdn
+
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    if tuple(block_config) != tdn.BLOCK_CONFIG:
+        shallow_trunk_patch(monkeypatch, block_config, jdt)
+    cfg = jaff.ModelConfig(method="reinforcement", input_size=input_size, dtype=dtype)
+    model = jaff.AffordanceNet(cfg)
+    port = aff.AffordanceNet(aff.ModelConfig(
+        method="reinforcement", input_size=input_size, dtype=dtype,
+        block_config=block_config))
+    variables = init_flax_all(model, port.grasp_trunk.num_features, cfg.feature_hw, seed)
+    stats = rand_stats(variables["batch_stats"], seed)
+    bridge.load_affordance_params(port, to_numpy_tree(variables["params"]),
+                                  to_numpy_tree(stats))
+    return model, {"params": variables["params"], "batch_stats": stats}, port
+
+
+def score_inputs(seed, B, M, S):
+    """Preprocessed random depth maps: scenes (B, S, S, 3), masks (B, M, S, S, 3)."""
+    from smg_tpu_torch.models import affordance as aff
+
+    rng = np.random.RandomState(seed)
+    depth = (rng.rand(B * (M + 1), S, S) * 0.06).astype(np.float32)
+    x = aff.preprocess_depth(torch.as_tensor(depth), aff.ModelConfig(input_size=S)).numpy()
+    return x[:B], x[B:].reshape(B, M, S, S, 3)
+
+
+# ---------------------------------------------------------------------------
 # The training step's parity tests (test_torch_train*.py)
 # ---------------------------------------------------------------------------
 

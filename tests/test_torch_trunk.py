@@ -26,8 +26,6 @@ from smg_tpu.models import affordance as jaff
 from smg_tpu.models import fast_trunk as jft
 from smg_tpu.ops import dense_layer_pallas as dlp
 from smg_tpu.ops import transition_pallas as trp
-from smg_tpu_torch import bridge
-from smg_tpu_torch.models import affordance as aff
 from smg_tpu_torch.models import densenet as tdn
 from smg_tpu_torch.models import fast_trunk as tft
 from smg_tpu_torch.ops import dense_layer as k2
@@ -35,41 +33,14 @@ from smg_tpu_torch.ops import stem_pool as k4
 from smg_tpu_torch.ops import transition as k3
 
 from test_torch_parity_helpers import (
-    init_flax_all,
-    rand_stats as _rand_stats,
-    shallow_trunk_patch,
-    to_numpy_tree,
+    assert_kernel_close as _assert_kernel_close,
+    bf16_np as _bf16_np,
+    bn_np as _bn_np,
+    flax_block as _flax_block,
+    fold_np as _fold,
+    models as _models,
+    score_inputs as _inputs,
 )
-
-KERNEL_TOL = 2.0 ** -6
-
-
-def _bn_np(rng, c):
-    p = {"scale": rng.uniform(0.5, 1.5, c), "bias": rng.uniform(0.05, 0.4, c)}
-    s = {"mean": rng.uniform(-0.1, 0.1, c), "var": rng.uniform(0.5, 1.5, c)}
-    f = lambda d: {k: v.astype(np.float32) for k, v in d.items()}  # noqa: E731
-    return f(p), f(s)
-
-
-def _fold(p, s):
-    a = p["scale"] / np.sqrt(s["var"] + 1e-5)
-    return (torch.as_tensor(a.astype(np.float32)),
-            torch.as_tensor((p["bias"] - s["mean"] * a).astype(np.float32)))
-
-
-def _bf16_np(x):
-    return np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
-
-
-def _assert_kernel_close(got, want, name):
-    got = np.asarray(got, np.float32)
-    want = np.asarray(want, np.float32)
-    assert got.shape == want.shape, (got.shape, want.shape)
-    scale = float(np.abs(want).max())
-    assert scale > 1e-3, f"{name}: degenerate case"
-    err = float(np.abs(got - want).max()) / scale
-    assert err <= KERNEL_TOL, f"{name}: max err {err:.5f} of scale {scale:.3f}"
-
 
 # ---------------------------------------------------------------------------
 # Kernels (plain versions) against the Pallas kernels in interpret mode
@@ -108,23 +79,6 @@ def test_transition_matches_pallas(C):
                         torch.tensor(wt).to(torch.bfloat16))
     _assert_kernel_close(got.float(), np.asarray(want, np.float32),
                          f"transition C={C}")
-
-
-def _flax_block(rng, C0, L):
-    bp, bs = {}, {}
-    for i in range(L):
-        c = C0 + 32 * i
-        n1p, n1s = _bn_np(rng, c)
-        n2p, n2s = _bn_np(rng, 128)
-        bp[f"denselayer{i + 1}"] = {
-            "norm1": n1p, "norm2": n2p,
-            "conv1": {"kernel": (rng.randn(1, 1, c, 128) * (2 / c) ** 0.5)
-                      .astype(np.float32)},
-            "conv2": {"kernel": (rng.randn(3, 3, 128, 32) * (2 / 1152) ** 0.5)
-                      .astype(np.float32)},
-        }
-        bs[f"denselayer{i + 1}"] = {"norm1": n1s, "norm2": n2s}
-    return bp, bs
 
 
 @pytest.mark.parametrize("HW,C0,L", [
@@ -169,33 +123,6 @@ def test_dense_block_matches_pallas(HW, C0, L):
 # ---------------------------------------------------------------------------
 # Trunk + head against Flax AffordanceNet.score (eval)
 # ---------------------------------------------------------------------------
-
-
-def _models(monkeypatch, dtype: str, block_config, input_size, seed=0):
-    """(flax model, variables, port model) with the same weights."""
-    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    if block_config != tdn.BLOCK_CONFIG:
-        shallow_trunk_patch(monkeypatch, block_config, jdt)
-    cfg = jaff.ModelConfig(method="reinforcement", input_size=input_size,
-                           dtype=dtype)
-    model = jaff.AffordanceNet(cfg)
-    port = aff.AffordanceNet(aff.ModelConfig(
-        method="reinforcement", input_size=input_size, dtype=dtype,
-        block_config=block_config))
-    variables = init_flax_all(model, port.grasp_trunk.num_features,
-                              cfg.feature_hw, seed)
-    stats = _rand_stats(variables["batch_stats"], seed)
-    bridge.load_affordance_params(port, to_numpy_tree(variables["params"]),
-                                  to_numpy_tree(stats))
-    return model, {"params": variables["params"], "batch_stats": stats}, port
-
-
-def _inputs(seed, B, M, S):
-    rng = np.random.RandomState(seed)
-    depth = (rng.rand(B * (M + 1), S, S) * 0.06).astype(np.float32)
-    cfg = aff.ModelConfig(input_size=S)
-    x = aff.preprocess_depth(torch.as_tensor(depth), cfg).numpy()
-    return x[:B], x[B:].reshape(B, M, S, S, 3)
 
 
 def _score_pair(monkeypatch, dtype, block_config, S, B, M, style):
