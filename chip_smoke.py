@@ -6,15 +6,21 @@
    and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from smg_tpu_torch/csrc (nvcc, sm_90a).
 3. One phase per kernel: the kernel against its plain PyTorch version on
-   the card, at the shapes the main paths give it — K1 at B = 32 and 1024,
-   K2 at every (H, C_in) of DenseNet-121 at 224, K3 at its three shapes,
+   the card, at the shapes the main paths give it — K1 at B = 32 and 1024
+   (also run twice for the same bits, and timed per launch over a loop of
+   200), K2 at every (H, C_in) of DenseNet-121 at 224 and at 640 with
+   104 images (with its 224 time per dense block split into its two
+   launches by the profiler, beside the parts' cuBLAS and cuDNN
+   yardsticks), K3 at its three shapes,
    K4 at the stem, K5 (the `xla_pk` conv2) at every (H, C_in) at 224 and
    at 640 with 104 images, K6a/K6b (the train-mode dense layer, forward and
    backward) at every (H, C_in) with 64 images, K7 (the `pallas` dense
    block) on the four blocks at 224 and at 640 with 104 images, both
    epilogues, taps_packed True and False — with each kernel's and plain
-   version's median time from CUDA events and the least time the card
-   could take for the same work (bound_ms, from the shapes); and K6
+   version's time and the least time the card could take for the same
+   work (bound_ms, from the shapes): a kernel's time is its device time,
+   its calls replayed from a CUDA graph (device_ms), a plain version's its
+   eager time by CUDA events; and K6
    composed over each whole dense block against its plain walk.
 4. The act path: make_prod_trainer(32) + make_prod_loop_cfg(32) with
    is_testing=True, init_loop with the seeded He init, then act steps,
@@ -83,6 +89,7 @@ UPDATE_SCENES = 8
 TRUTH_RATIO = 1.5
 DP_SCENES = 8         # the decision-parity path: 8 x (1 + 12) = STREAMS images
 SIZES = (224, 640)    # the trunk's input sizes (ModelConfig.input_size)
+LOOP_LAUNCHES = 200   # K1's timing loop: back-to-back launches per reading
 DETAIL = {}
 
 # The card's published peaks (H100 SXM, dense, at 700 W): the bound of a
@@ -142,6 +149,56 @@ def cuda_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(fn, calls=5, replays=3):
+    """Median ms of one fn() on the device: `calls` calls captured in one
+    CUDA graph, the graph replayed `replays` times, each replay timed by
+    CUDA events and divided by `calls`. Unlike timing an eager call, this
+    leaves out the host's cost of each call (the wrapper's checks and its
+    ctypes call), which on a busy host exceeds a small kernel's time."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def loop_ms(fn, n=LOOP_LAUNCHES):
+    """Per-launch mean ms of n back-to-back fn() calls, by CUDA events:
+    (eager loop from Python, the same n calls replayed from one CUDA graph).
+    The eager loop includes the host's cost of each call; the graph's
+    replay leaves the device time and the per-node launch gap."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, device_ms(fn, calls=n, replays=1)
+
+
 def rel_err(got, want):
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-6))
@@ -170,8 +227,8 @@ def phase_contact(dev):
     gains = dict(kn=prm.kn, zeta=prm.zeta, share=prm.contact_share, mu=prm.mu,
                  mu_grip=prm.mu_gripper, v_eps=prm.v_eps,
                  max_pen=prm.max_pen, max_vn=prm.max_vn)
-    worst, rows_out, ms, plain = 0.0, [], 0.0, 0.0
-    for B in (32, 1024):
+    worst, rows_out, res = 0.0, [], {}
+    for B in (B_MAIN, 1024):
         gen = torch.Generator(device=dev).manual_seed(SEED)
         # Scenes mid-drop (30 steps in) with the gripper lowered into the
         # pile: object-object, object-gripper and resting contacts.
@@ -196,28 +253,52 @@ def phase_contact(dev):
         err_abs = float((got - want).abs().max())
         check(float(excess) <= 1e-5 * fmax,
               f"K1 B={B}: |err| {err_abs} over rtol 1e-5 + 1e-5 max|f|")
-        k_ms = cuda_ms(lambda: contact.pairwise_forces_stacked(
-            rows_t, cols_t, 9, **gains), reps=20)
+        again = torch.stack(contact.pairwise_forces_stacked(rows_t, cols_t, 9, **gains))
+        check(torch.equal(got, again), f"K1 B={B}: two runs differ")
+        eager_ms, k_ms = loop_ms(lambda: contact.pairwise_forces_stacked(
+            rows_t, cols_t, 9, **gains))
         p_ms = cuda_ms(lambda: contact.pairwise_forces_plain(
             row, cols, 9, **gains), reps=10)
         worst = max(worst, err_abs)
+        # The work this data needs: every pair's distance test (~17 f32
+        # operations), and the force terms (~63 more) of the pairs in
+        # contact; the kernel skips the rest, which add exactly zero. Bytes:
+        # 9 (S + T) inputs and 3 S outputs per scene.
+        S, T = rows_t.shape[1], cols_t.shape[1]
+        n_contact = contact_pairs(row, cols, 9)
+        b_ms, b_by = bound(17.0 * S * T * B + 63.0 * n_contact,
+                           4.0 * (9 * (S + T) + 3 * S) * B, PEAK_F32)
+        res[B] = (k_ms, p_ms, b_ms, b_by, n_contact)
         rows_out.append({"B": B, "max_abs_err": err_abs, "max_abs_force": fmax,
-                         "ms": k_ms, "plain_ms": p_ms})
+                         "ms": k_ms, "ms_eager_loop": eager_ms, "plain_ms": p_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "pairs_in_contact": n_contact})
         print(f"K1 contact B={B}: max|err| {err_abs:.3e} (bound rtol 1e-5 + "
-              f"{1e-5 * fmax:.2e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        if B == B_MAIN:
-            ms, plain = k_ms, p_ms
+              f"{1e-5 * fmax:.2e}), repeat bitwise equal; per launch over "
+              f"{LOOP_LAUNCHES}: {k_ms:.5f} ms replayed from a CUDA graph, "
+              f"{eager_ms:.5f} ms from an eager loop; plain {p_ms:.4f} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}; {n_contact} of {S * T * B} pairs in contact)")
     DETAIL["K1"] = rows_out
-    # At the main path's B = 32: S x T pairs per scene, ~80 f32 operations
-    # each (csrc/contact.cu's loop body); 9 (S + T) inputs and 3 S outputs.
-    S, T = rows_t.shape[1], cols_t.shape[1]
-    return with_bound({"name": "K1 contact sweep", "route": "cuda",
-                       "source": "smg_tpu_torch/csrc/contact.cu",
-                       "replaces": "smg_tpu/ops/contact_pallas.py:160",
-                       "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-                       "library_ms": None},
-                      80.0 * S * T * B_MAIN, 4.0 * (9 * (S + T) + 3 * S) * B_MAIN,
-                      PEAK_F32)
+    k_ms, p_ms, b_ms, b_by, _ = res[B_MAIN]
+    return {"name": "K1 contact sweep", "route": "cuda",
+            "source": "smg_tpu_torch/csrc/contact.cu",
+            "replaces": "smg_tpu/ops/contact_pallas.py:160",
+            "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "ms_b1024": res[1024][0],
+            "bound_ms_b1024": res[1024][2]}
+
+
+def contact_pairs(row, cols, K):
+    """The (row, source, scene) pairs in contact: K1's mask (distinct owners,
+    both spheres live, penetration > 0)."""
+    S, T = row[0].shape[0], cols[0].shape[0]
+    d2 = sum((r[:, None] - c[None]) ** 2 for r, c in zip(row[:3], cols[:3]))
+    pen = (row[6][:, None] + cols[6][None]) - d2 * torch.rsqrt(d2 + 1e-18)
+    j = torch.arange(T, device=d2.device)
+    col_owner = torch.where(j >= S, torch.full_like(j, -1), j // K)
+    row_owner = torch.arange(S, device=d2.device) // K
+    ok = ((row_owner[:, None] != col_owner[None])[..., None] & (row[8][:, None] > 0)
+          & (cols[8][None] > 0) & (pen > 0))
+    return int(ok.sum())
 
 
 def _bn(gen, c, dev):
@@ -227,47 +308,45 @@ def _bn(gen, c, dev):
 
 
 def phase_dense_layer(dev):
-    from smg_tpu_torch.models.densenet import BLOCK_CONFIG
+    """K2 at all 58 layer shapes of DenseNet-121 at 224 and at 640 with 104
+    images (one `xla_fl` trunk pass at each input size), each layer in
+    place in its block buffer as the trunk runs it. The table's times are
+    the 224 pass's; the 640 layers are checked, not timed."""
     from smg_tpu_torch.ops import dense_layer as k2
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    N, HW, C0 = STREAMS, 56, 64
+    N = STREAMS
     worst, tot_ms, tot_plain, rows = 0.0, 0.0, 0.0, []
-    for L in BLOCK_CONFIG:
-        C = C0 + 32 * L
-        buf = torch.randn((N, HW, HW, C), generator=gen, device=dev).to(torch.bfloat16)
-        for l in range(L):
-            c_in = C0 + 32 * l
-            a1, b1 = _bn(gen, c_in, dev)
-            a2, b2 = _bn(gen, 128, dev)
-            w1 = (torch.randn((c_in, 128), generator=gen, device=dev)
-                  * (2 / c_in) ** 0.5).to(torch.bfloat16)
-            w2 = (torch.randn((9, 128, 32), generator=gen, device=dev)
-                  * (2 / 1152) ** 0.5).to(torch.bfloat16)
-            ops = (a1, b1, w1, a2, b2, w2)
-            k2.dense_layer(buf, c_in, *ops)
-            got = buf[..., c_in:c_in + 32].clone()
-            k2.dense_layer_plain(buf, c_in, *ops)
-            want = buf[..., c_in:c_in + 32]
-            err = rel_err(got, want)
-            check(err <= TOL_BF16, f"K2 H={HW} C_in={c_in}: rel err {err:.5f}")
-            err_abs = float((got.float() - want.float()).abs().max())
-            k_ms = cuda_ms(lambda: k2.dense_layer(buf, c_in, *ops), reps=5)
-            p_ms = cuda_ms(lambda: k2.dense_layer_plain(buf, c_in, *ops),
-                           reps=2, warmup=1)
-            worst = max(worst, err_abs)
-            tot_ms += k_ms
-            tot_plain += p_ms
-            rows.append({"H": HW, "C_in": c_in, "rel_err": err,
-                         "max_abs_err": err_abs, "ms": k_ms, "plain_ms": p_ms})
-        print(f"K2 dense layers H={HW} C_in {C0}..{C - 32}: worst rel err "
-              f"{max(r['rel_err'] for r in rows if r['H'] == HW):.5f} "
-              f"(bound {TOL_BF16:.5f})")
-        C0, HW = C // 2, HW // 2
-        del buf
+    for S in SIZES:
+        for HW, C0, L in densenet_blocks(S):
+            C = C0 + 32 * L
+            buf = torch.randn((N, HW, HW, C), generator=gen, device=dev).to(torch.bfloat16)
+            for c_in, *ops in _eval_layers(gen, dev, C0, L):
+                k2.dense_layer(buf, c_in, *ops)
+                got = buf[..., c_in:c_in + 32].clone()
+                k2.dense_layer_plain(buf, c_in, *ops)
+                want = buf[..., c_in:c_in + 32]
+                err = rel_err(got, want)
+                check(err <= TOL_BF16, f"K2 {S} H={HW} C_in={c_in}: rel err {err:.5f}")
+                err_abs = float((got.float() - want.float()).abs().max())
+                worst = max(worst, err_abs)
+                row = {"input": S, "H": HW, "C_in": c_in, "rel_err": err,
+                       "max_abs_err": err_abs}
+                if S == 224:
+                    row["ms"] = device_ms(lambda: k2.dense_layer(buf, c_in, *ops))
+                    row["plain_ms"] = cuda_ms(lambda: k2.dense_layer_plain(buf, c_in, *ops),
+                                              reps=2, warmup=1)
+                    tot_ms += row["ms"]
+                    tot_plain += row["plain_ms"]
+                rows.append(row)
+            print(f"K2 dense layers {S}: H={HW} C_in {C0}..{C - 32} ({N} images): worst "
+                  f"rel err {max(r['rel_err'] for r in rows if r['input'] == S and r['H'] == HW):.5f} "
+                  f"(bound {TOL_BF16:.5f})")
+            del buf
     DETAIL["K2"] = rows
-    print(f"K2 one trunk pass ({len(rows)} layers, {N} images): kernel "
+    print(f"K2 one xla_fl trunk pass at 224 (58 layers, {N} images): kernel "
           f"{tot_ms:.3f} ms, plain {tot_plain:.3f} ms")
+    split = dense_layer_split(dev)
     flops = nbytes = 0.0
     for H, c_in in densenet_layers():
         P = N * H * H
@@ -277,7 +356,69 @@ def phase_dense_layer(dev):
                        "source": "smg_tpu_torch/csrc/dense_layer.cu",
                        "replaces": "smg_tpu/ops/dense_layer_pallas.py:405",
                        "max_abs_err": worst, "ms": tot_ms, "plain_ms": tot_plain,
-                       "library_ms": None}, flops, nbytes, PEAK_BF16)
+                       "library_ms": None, "gemm_ms": split["gemm_ms"],
+                       "conv3x3_ms": split["conv3x3_ms"], "matmul_ms": split["matmul_ms"],
+                       "conv2d_ms": split["conv2d_ms"]}, flops, nbytes, PEAK_BF16)
+
+
+def dense_layer_split(dev):
+    """K2's time per dense block of one 104-image pass at 224, split into
+    its two launches (the bottleneck GEMM, the 3x3) by device time per
+    kernel name (torch.profiler over 3 passes), and the parts' library
+    yardsticks at the same 58 shapes (median CUDA-event ms): torch.matmul
+    of the bf16 prefix view by w1 for the bottleneck, F.conv2d in bf16
+    channels_last on h2 for the 3x3, each timed like the kernels (device_ms).
+    Neither computes K2's fused function."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smg_tpu_torch.ops import dense_layer as k2
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    bf, N, reps, rows = torch.bfloat16, STREAMS, 3, []
+    for H, C0, L in DENSENET_BLOCKS:
+        buf = torch.randn((N, H, H, C0 + 32 * L), generator=gen, device=dev).to(bf)
+        layers = _eval_layers(gen, dev, C0, L)
+        for c_in, *ops in layers:
+            k2.dense_layer(buf, c_in, *ops)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for c_in, *ops in layers:
+                    k2.dense_layer(buf, c_in, *ops)
+            torch.cuda.synchronize()
+        parts = {"gemm": 0.0, "conv3x3": 0.0, "other": 0.0}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            part = next((p for p in ("gemm", "conv3x3") if p in e.key), "other")
+            parts[part] += dev_us(e) / 1e3 / reps
+        mm_ms = conv_ms = 0.0
+        h2 = torch.randn((N, 128, H, H), generator=gen, device=dev).to(bf).to(
+            memory_format=torch.channels_last)
+        for c_in, _, _, w1, _, _, w2 in layers:
+            x = buf[..., :c_in].reshape(-1, c_in)
+            wc = w2.reshape(3, 3, 128, 32).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            mm_ms += device_ms(lambda: torch.matmul(x, w1))
+            conv_ms += device_ms(lambda: F.conv2d(h2, wc, padding=1))
+        rows.append({"H": H, "layers": L, "gemm_ms": parts["gemm"],
+                     "conv3x3_ms": parts["conv3x3"], "other_ms": parts["other"],
+                     "matmul_ms": mm_ms, "conv2d_ms": conv_ms})
+        print(f"K2 split H={H} ({L} layers, {N} images): GEMM {parts['gemm']:.4f} ms, "
+              f"3x3 {parts['conv3x3']:.4f} ms (other {parts['other']:.4f}); yardsticks "
+              f"torch.matmul {mm_ms:.4f} ms, F.conv2d {conv_ms:.4f} ms")
+        del buf, h2, layers
+    tot = {k: sum(r[k] for r in rows) for k in rows[0] if k.endswith("_ms")}
+    print(f"K2 split, one pass: GEMM {tot['gemm_ms']:.4f} ms + 3x3 "
+          f"{tot['conv3x3_ms']:.4f} ms; yardsticks torch.matmul {tot['matmul_ms']:.4f} "
+          f"ms, F.conv2d {tot['conv2d_ms']:.4f} ms")
+    DETAIL["K2_split"] = {"blocks": rows, "pass": tot}
+    return tot
 
 
 def phase_transition(dev):
@@ -295,7 +436,7 @@ def phase_transition(dev):
         err = rel_err(got, want)
         check(err <= TOL_BF16, f"K3 {HW}x{HW}x{C}: rel err {err:.5f}")
         err_abs = float((got.float() - want.float()).abs().max())
-        k_ms = cuda_ms(lambda: k3.transition(x, a, b, wt))
+        k_ms = device_ms(lambda: k3.transition(x, a, b, wt))
         p_ms = cuda_ms(lambda: k3.transition_plain(x, a, b, wt), reps=5)
         worst = max(worst, err_abs)
         tot_ms += k_ms
@@ -329,7 +470,7 @@ def phase_stem(dev):
     check(got.shape == (STREAMS, 56, 56, 64), f"K4 shape {tuple(got.shape)}")
     check(err <= TOL_BF16, f"K4 stem: rel err {err:.5f}")
     err_abs = float((got.float() - want.float()).abs().max())
-    k_ms = cuda_ms(lambda: k4.bn_relu_maxpool(y, a, b))
+    k_ms = device_ms(lambda: k4.bn_relu_maxpool(y, a, b))
     p_ms = cuda_ms(lambda: k4.bn_relu_maxpool_plain(y, a, b))
     DETAIL["K4"] = {"rel_err": err, "max_abs_err": err_abs, "ms": k_ms,
                     "plain_ms": p_ms}
@@ -375,8 +516,7 @@ def phase_conv2(dev):
                 err_abs = float((out.float() - want.float()).abs().max())
                 row = {"input": S, "H": H, "C_in": c_in, "rel_err": err,
                        "max_abs_err": err_abs,
-                       "ms": cuda_ms(lambda: k5.conv2_bn_relu(h1, a, b, w2, out=out),
-                                     reps=5)}
+                       "ms": device_ms(lambda: k5.conv2_bn_relu(h1, a, b, w2, out=out))}
                 tot_ms[S] += row["ms"]
                 worst = max(worst, err_abs)
                 if S == 224:
@@ -482,8 +622,8 @@ def phase_dense_block(dev):
                        "max_abs_err": err_abs}
                 timed = ""
                 if taps_packed:
-                    row["ms"] = cuda_ms(lambda: k7.dense_block_apply(
-                        buf, packed, ep, epilogue, out=got), reps=3, warmup=1)
+                    row["ms"] = device_ms(lambda: k7.dense_block_apply(
+                        buf, packed, ep, epilogue, out=got), calls=3)
                     tot_ms[S] += row["ms"]
                     timed = f"; kernel {row['ms']:.3f} ms"
                 if taps_packed and S == 224:
@@ -577,10 +717,10 @@ def phase_dense_layer_train(dev):
                         for a, b in zip((dx_k, *g_k), (dx_p, *g_p)))
             del d_p, g_p
             t = dict(
-                fwd=cuda_ms(lambda: k6.layer_fwd(buf, c_in, *ops), reps=5),
+                fwd=device_ms(lambda: k6.layer_fwd(buf, c_in, *ops)),
                 fwd_plain=cuda_ms(lambda: k6.layer_fwd_plain(buf, c_in, *ops),
                                   reps=2, warmup=1),
-                bwd=cuda_ms(lambda: k6.layer_bwd(buf, d_k, c_in, *bwd_args), reps=5),
+                bwd=device_ms(lambda: k6.layer_bwd(buf, d_k, c_in, *bwd_args)),
                 bwd_plain=cuda_ms(lambda: k6.layer_bwd_plain(buf, d_k, c_in, *bwd_args),
                                   reps=2, warmup=1))
             lay = _conv_layer(dev, c_in, *ops)
@@ -1223,8 +1363,10 @@ def main(argv):
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(DETAIL, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_b1024",
+            "bound_ms_b1024")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
+                                  for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,22 @@
 // Shared device helpers of the port's kernels: bf16 packing, an affine
 // without FMA contraction (so the kernels round where the plain PyTorch
-// versions do), and three tensor-core building blocks shared by the dense
-// layer kernels (K2, K5, K7 eval; K6 train): a tiled bf16 GEMM with a fused
-// prologue (the A operand is computed while it is loaded) and a fused
-// epilogue; a 3x3 128 -> 32 convolution over a computed source; and a
-// split-K A^T B product for weight gradients.
-//
-// All are deliberately simple: WMMA m16n16k16 bf16 -> f32 tiles, one
-// shared-memory stage, no software pipelining. wgmma / TMA / multi-stage
-// rings are later work.
+// versions do), Hopper's cp.async / ldmatrix / mma.sync wrappers, and the
+// tensor-core building blocks of the dense-layer kernels (K2, K5, K7 eval;
+// K6 train):
+//   - gemm_bf16_kernel: a tiled bf16 GEMM whose A operand is computed while
+//     it is staged (any prologue) and whose result goes through an epilogue
+//     functor. WMMA m16n16k16, one shared-memory stage: simple, and slow
+//     (K3, K6 and K7's transition epilogue still use it).
+//   - gemm_bnrelu_kernel: the eval bottleneck GEMM of K2 and K7, pipelined:
+//     a 3-stage cp.async ring of raw x / B tiles, the norm + ReLU applied to
+//     the A fragments in registers, mma.sync m16n8k16; 128- or 64-row
+//     tiles.
+//   - conv3x3_kernel: THE 3x3 / pad-1 convolution 128 -> 32 of every dense
+//     layer (K2, K5, K6a's forward, K7): a persistent grid, tap weights
+//     resident in shared memory, each tile's halo patch staged once by a
+//     double-buffered cp.async, nine shifted ldmatrix views of the patch.
+//   - gemm_atb_kernel: a split-K A^T B product for weight gradients.
+// What bounds the two redesigned ones is stated above each.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -159,107 +167,529 @@ gemm_bf16_kernel(Loader loader, const bf16* __restrict__ Bm, int ldb, int M,
 }
 
 // ---------------------------------------------------------------------------
+// Hopper building blocks: cp.async, ldmatrix, mma.sync m16n8k16 bf16 -> f32.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid (src is then
+// not read, but must be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16 x 16, row) b (16 x 8, col), bf16 operands, f32 accumulator.
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// bf16(relu(x a + b)) on a packed pair, with the plain versions' roundings.
+__device__ __forceinline__ uint32_t bn_relu2(uint32_t x, float2 a, float2 b) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack2(bn_relu(v.x, a.x, b.x), bn_relu(v.y, a.y, b.y));
+}
+
+// ---------------------------------------------------------------------------
+// Pipelined GEMM with a norm + ReLU prologue: C[M, 128] = bf16(relu(x a + b))
+// @ B, x a row-major bf16 matrix with leading dim ldx (its first K columns
+// are read), B (K, 128) bf16, a and b (K,) f32, f32 sums; the result goes
+// through `epi.store2(row, col, v0, v1)` (2 consecutive columns).
+//   A ring of GEMMN_STAGES shared-memory stages, each holding the raw x and
+//   B tiles of one 64-deep k-slice and that slice's a and b, filled with
+//   cp.async while the tensor cores work on an earlier stage. The prologue
+//   is applied to each A fragment in registers, between ldmatrix and the
+//   MMA. BM rows per block (128 or 64: the smaller tile where M is small),
+//   warps of 32 x 64, mma.sync m16n8k16. K must be a multiple of 32 (a
+//   last half k-slice reads zeros); rows past M read zeros and are not
+//   stored. Tiles are swizzled (16-byte chunk c of row r at c ^ f(r)) so
+//   that ldmatrix reads no bank twice.
+//   What bounds it: not its loads (the ring covers them) but issue slots,
+//   which the prologue's arithmetic on every A fragment (done by both
+//   N-warps) shares with the MMAs; applying the prologue once per stage in
+//   shared memory instead cost more (an extra pass and barrier). wgmma,
+//   which frees the issue slots, is the next step.
+// ---------------------------------------------------------------------------
+
+constexpr int GEMMN_BK = 64;
+constexpr int GEMMN_N = 128;
+constexpr int GEMMN_STAGES = 3;
+
+template <int BM>
+__host__ __device__ constexpr int gemmn_stage_bytes() {
+  return BM * GEMMN_BK * 2 + GEMMN_BK * GEMMN_N * 2 + 2 * GEMMN_BK * 4;
+}
+
+template <int BM>
+__host__ __device__ constexpr int gemmn_smem_bytes() {
+  return GEMMN_STAGES * gemmn_stage_bytes<BM>();
+}
+
+template <int BM, class Epilogue>
+__global__ void __launch_bounds__(2 * BM, 512 / (2 * BM))
+gemm_bnrelu_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict__ a,
+                   const float* __restrict__ b, const bf16* __restrict__ Bm, int M, int K,
+                   Epilogue epi) {
+  constexpr int THREADS = 2 * BM;
+  constexpr int A_BYTES = BM * GEMMN_BK * 2;     // rows of 128 B
+  constexpr int B_BYTES = GEMMN_BK * GEMMN_N * 2;  // rows of 256 B
+  extern __shared__ __align__(128) unsigned char gsm[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wm = warp >> 1;   // BM / 32 warps along M
+  const int wn = warp & 1;    // 2 warps along N: columns wn * 64 .. + 64
+  const int m0 = blockIdx.x * BM;
+  const int KT = (K + GEMMN_BK - 1) / GEMMN_BK;
+
+  auto stage_base = [&](int s) { return gsm + s * gemmn_stage_bytes<BM>(); };
+  auto load = [&](int kt, int s) {
+    unsigned char* A = stage_base(s);
+    unsigned char* Bs = A + A_BYTES;
+    float* ab = reinterpret_cast<float*>(Bs + B_BYTES);
+    // Columns k0 + .. past K (the tail of a K = 32 mod 64) read zeros: zero
+    // weights, so they add nothing.
+    const int k0 = kt * GEMMN_BK;
+    for (int e = tid; e < BM * 8; e += THREADS) {
+      const int r = e >> 3, c = e & 7;
+      const bool ok = m0 + r < M && k0 + c * 8 < K;
+      cp_async16(smem_addr(A + r * 128 + ((c ^ (r & 7)) << 4)),
+                 ok ? x + (size_t)(m0 + r) * ldx + k0 + c * 8 : x, ok);
+    }
+    for (int e = tid; e < GEMMN_BK * 16; e += THREADS) {
+      const int r = e >> 4, c = e & 15;
+      const bool ok = k0 + r < K;
+      cp_async16(smem_addr(Bs + r * 256 + ((c ^ (r & 7)) << 4)),
+                 ok ? Bm + (size_t)(k0 + r) * GEMMN_N + c * 8 : Bm, ok);
+    }
+    if (tid < 32) {
+      const int c = tid & 15;
+      const bool ok = k0 + c * 4 < K;
+      cp_async16(smem_addr(ab + c * 4 + (tid >> 4) * GEMMN_BK),
+                 ok ? (tid < 16 ? a : b) + k0 + c * 4 : a, ok);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[f][n][q] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < GEMMN_STAGES - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
+  }
+  const int g = lane >> 2, t = lane & 3;
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<GEMMN_STAGES - 2>();
+    __syncthreads();
+    const int nk = kt + GEMMN_STAGES - 1;
+    if (nk < KT) load(nk, nk % GEMMN_STAGES);
+    cp_async_commit();
+    const unsigned char* A = stage_base(kt % GEMMN_STAGES);
+    const unsigned char* Bs = A + A_BYTES;
+    const float* ab = reinterpret_cast<const float*>(Bs + B_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < GEMMN_BK; kk += 16) {
+      // This thread's k columns: kk + 2t, +1 (a0, a1) and kk + 2t + 8, +9 (a2, a3).
+      const float2 alo = *reinterpret_cast<const float2*>(ab + kk + 2 * t);
+      const float2 ahi = *reinterpret_cast<const float2*>(ab + kk + 2 * t + 8);
+      const float2 blo = *reinterpret_cast<const float2*>(ab + GEMMN_BK + kk + 2 * t);
+      const float2 bhi = *reinterpret_cast<const float2*>(ab + GEMMN_BK + kk + 2 * t + 8);
+      // All of this k-step's fragments first, then the prologue, then the
+      // MMAs: one load latency per k-step.
+      uint32_t af[2][4], bfr[4][4];
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int r = wm * 32 + f * 16 + (lane & 15);
+        const int c = (kk >> 3) + (lane >> 4);
+        ldmatrix_x4(smem_addr(A + r * 128 + ((c ^ (r & 7)) << 4)), af[f]);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < 4; ++n2) {
+        const int r = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int c = wn * 8 + n2 * 2 + (lane >> 4);
+        ldmatrix_x4_trans(smem_addr(Bs + r * 256 + ((c ^ (r & 7)) << 4)), bfr[n2]);
+      }
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        af[f][0] = bn_relu2(af[f][0], alo, blo);
+        af[f][1] = bn_relu2(af[f][1], alo, blo);
+        af[f][2] = bn_relu2(af[f][2], ahi, bhi);
+        af[f][3] = bn_relu2(af[f][3], ahi, bhi);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < 4; ++n2)
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          mma_16816(acc[f][2 * n2], af[f], bfr[n2][0], bfr[n2][1]);
+          mma_16816(acc[f][2 * n2 + 1], af[f], bfr[n2][2], bfr[n2][3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int row = m0 + wm * 32 + f * 16 + g;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = wn * 64 + n * 8 + 2 * t;
+      if (row < M) epi.store2(row, col, acc[f][n][0], acc[f][n][1]);
+      if (row + 8 < M) epi.store2(row + 8, col, acc[f][n][2], acc[f][n][3]);
+    }
+  }
+}
+
+// The bottleneck's epilogue (K2, K7): h2 = bf16(relu(t a2 + b2)) into a
+// (P, 128) scratch, from the f32 sum t rounded to bf16 first (RoundT, K2's
+// h1) or as it is (K7).
+template <bool RoundT>
+struct Bn2Epilogue {
+  bf16* h2;
+  const float* a2;
+  const float* b2;
+  __device__ void store2(int p, int col, float v0, float v1) const {
+    if (RoundT) {
+      v0 = round_bf16(v0);
+      v1 = round_bf16(v1);
+    }
+    *reinterpret_cast<uint32_t*>(h2 + (size_t)p * GEMMN_N + col) =
+        pack2(bn_relu(v0, a2[col], b2[col]), bn_relu(v1, a2[col + 1], b2[col + 1]));
+  }
+};
+
+// Launch the GEMM above with BM = bm (128 or 64) on `stream`.
+template <class Epilogue>
+cudaError_t gemm_bnrelu(int bm, const bf16* x, int ldx, const float* a, const float* b,
+                        const bf16* Bm, int M, int K, Epilogue epi, cudaStream_t stream) {
+  if (bm == 128) {
+    static const cudaError_t set = cudaFuncSetAttribute(
+        gemm_bnrelu_kernel<128, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemmn_smem_bytes<128>());
+    if (set != cudaSuccess) return set;
+    gemm_bnrelu_kernel<128, Epilogue><<<(M + 127) / 128, 256, gemmn_smem_bytes<128>(),
+                                        stream>>>(x, ldx, a, b, Bm, M, K, epi);
+  } else if (bm == 64) {
+    static const cudaError_t set = cudaFuncSetAttribute(
+        gemm_bnrelu_kernel<64, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemmn_smem_bytes<64>());
+    if (set != cudaSuccess) return set;
+    gemm_bnrelu_kernel<64, Epilogue><<<(M + 63) / 64, 128, gemmn_smem_bytes<64>(), stream>>>(
+        x, ldx, a, b, Bm, M, K, epi);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // 3x3 / pad-1 convolution, 128 -> 32 channels, over NHWC pixels (N, H, W),
 // written at channel offset c_off of an NHWC buffer with pixel stride ld.
-//   The source rows come from `src.load8(pixel, c8)` (8 packed bf16
-//   channels, any prologue math); pixels off the image contribute exact
-//   zeros. With RoundTaps (the default) each tap's 128-channel partial is
-//   rounded to bf16 before the f32 tap sum, as the TPU kernels'
-//   packed-taps products are; without it each tap's f32 partial is summed
-//   as it is (K7's taps_packed=False).
-//   64-pixel tiles, 4 warps of 16 pixels, WMMA m16n16k16 bf16 -> f32.
+//
+// The source: `src.row(p)` points at pixel p's 128 bf16 values in device
+// memory; `src.apply(p, c8, raw)` computes the conv's input from 8 of them
+// (the prologue: BN + ReLU, or nothing when Src::kIdentity). Pixels off the
+// image contribute exact zeros (the zero padding applies to the computed
+// input, so relu(b) never leaks in). With RoundTaps (the default) each
+// tap's 128-channel partial is rounded to bf16 before the f32 tap sum, as
+// the TPU kernels' packed-taps products are; without it each tap's f32
+// partial is summed as it is (K7's taps_packed=False). Taps are summed in
+// order 0..8.
+//
+// The design. The output is cut into tiles of `images` whole images or of
+// `rows` x `cols` of one image (ops/conv2.py::conv3x3_plan chooses by a cost
+// model: the halo patch must fit, the card must get enough tiles, and the
+// tile's 32-pixel warp tasks should spread evenly over an SM's four
+// sub-partitions). A persistent grid (about one block per SM) walks the
+// tiles. Each block
+//   - loads the 9 x 128 x 32 tap weights into shared memory once and keeps
+//     them there (72 KB);
+//   - stages each tile's (rows + 2) x (cols + 2) x 128 source patch once,
+//     with zeros off the image, by cp.async into one of two buffers while
+//     it computes the tile before (then applies the prologue in place);
+//   - computes the nine taps as nine shifted views of the patch: each warp
+//     takes 32 output pixels, whose A fragments ldmatrix reads from the
+//     shifted patch rows (any pixel offset), against the resident weights,
+//     with mma.sync m16n8k16 (bf16 -> f32).
+// Shared memory is swizzled: 16-byte chunk c of patch pixel q sits at
+// chunk c ^ (q & 7), of weight row r at c ^ ((r >> 1) & 3).
+// What bounds it: per 104-image pass at 224 the 58 calls do 259 GFLOP and
+// must move ~1.1 GB (0.26 / 0.34 ms on the H100); this design is held to
+// mma.sync's issue rate on the busiest sub-partition of each SM, then the
+// patches' staging, and at the small layers of blocks 3-4 each launch's
+// fixed cost (the weights' load, one tile per block). wgmma (twice the
+// tensor rate, A from these registers, B from the resident weights) is the
+// next step.
 // ---------------------------------------------------------------------------
 
 constexpr int C3_CIN = 128;
 constexpr int C3_COUT = 32;
-constexpr int C3_BM = 64;                 // pixels per block
-constexpr int C3_THREADS = 128;           // 4 warps x 16 pixels
-constexpr int C3_LDA = C3_CIN + 8;        // rows 272 B apart
-constexpr int C3_LDB = C3_COUT + 8;       // rows 80 B apart
+constexpr int C3_THREADS = 256;                          // 8 warps
+constexpr int C3_UNIT = 32;                              // output pixels per warp task
+constexpr int C3_WEIGHT_BYTES = 9 * C3_CIN * C3_COUT * 2;  // 73,728
+constexpr int C3_PIXEL_BYTES = C3_CIN * 2;               // 256
+constexpr int C3_SMEM_MAX = 232448;                      // 227 KB, a block's most
 
-template <class Src, bool RoundTaps = true>
-__global__ void __launch_bounds__(C3_THREADS)
-conv3x3_kernel(Src src, const bf16* __restrict__ w2, bf16* __restrict__ out,
-               int N, int H, int W, int ld, int c_off) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[C3_BM * C3_LDA];
-  __shared__ __align__(128) bf16 Bs[C3_CIN * C3_LDB];
-  __shared__ __align__(128) float stage[4][16 * 16];
+// The tile plan (ops/conv2.py::conv3x3_plan): tile extents, the grid and
+// the dynamic shared memory (weights + two patches).
+struct Conv3x3Plan {
+  int images, rows, cols, grid, smem_bytes;
+};
 
+// The fragments of step (tap, ks), ks = a 16-channel slice: A (two 16-pixel
+// fragments) from the patch shifted by the tap, B (the tap's 16 x 32
+// weights) from the resident weights.
+__device__ __forceinline__ void c3_load(int tap, int ks, const int (&qc)[2], int pw, int hi,
+                                        uint32_t pbase, uint32_t wbase, const uint32_t (&bsw)[2],
+                                        uint32_t (&af)[2][4], uint32_t (&bfr)[2][4]) {
+  const int off = (tap / 3 - 1) * pw + (tap % 3 - 1);
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int q = qc[f] + off;
+    ldmatrix_x4(pbase + q * C3_PIXEL_BYTES + (((2 * ks + hi) ^ (q & 7)) << 4), af[f]);
+  }
+#pragma unroll
+  for (int n2 = 0; n2 < 2; ++n2)
+    ldmatrix_x4_trans(wbase + (tap * C3_CIN + ks * 16) * 64 + bsw[n2], bfr[n2]);
+}
+
+template <class Src, bool RoundTaps>
+__global__ void __launch_bounds__(C3_THREADS, 1)
+conv3x3_kernel(Src src, const bf16* __restrict__ w2, bf16* __restrict__ out, int N, int H,
+               int W, int ld, int c_off, Conv3x3Plan plan) {
+  extern __shared__ __align__(128) unsigned char csm[];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int P = N * H * W;
-  const int p0 = blockIdx.x * C3_BM;
+  const int pw = plan.cols + 2;
+  const int img_px = (plan.rows + 2) * pw;
+  const int patch_px = plan.images * img_px;
+  const int tiles_x = (W + plan.cols - 1) / plan.cols;
+  const int tiles_y = (H + plan.rows - 1) / plan.rows;
+  const int n_tiles = (N + plan.images - 1) / plan.images * tiles_y * tiles_x;
+  unsigned char* wsm = csm;
+  auto patch = [&](int buf) {
+    return csm + C3_WEIGHT_BYTES + buf * patch_px * C3_PIXEL_BYTES;
+  };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> total[2], part[2];
-  wmma::fill_fragment(total[0], 0.0f);
-  wmma::fill_fragment(total[1], 0.0f);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    // A: 64 pixels x 128 channels of shifted source = 1024 chunks; 8 per thread.
-#pragma unroll
-    for (int it = 0; it < 8; ++it) {
-      const int e = tid + it * C3_THREADS;
-      const int r = e >> 4;
-      const int c8 = (e & 15) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      const int p = p0 + r;
-      if (p < P) {
-        const int x = p % W;
-        const int t = p / W;
-        const int y = t % H;
-        const int yy = y + dy, xx = x + dx;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W) val = src.load8(p + dy * W + dx, c8);
+  // A tile's origin (first image, row, column).
+  auto origin = [&](int tile, int& n0, int& y0, int& x0) {
+    const int tx = tile % tiles_x;
+    const int ty = (tile / tiles_x) % tiles_y;
+    n0 = tile / (tiles_x * tiles_y) * plan.images;
+    y0 = ty * plan.rows;
+    x0 = tx * plan.cols;
+  };
+  // This thread's 16-byte chunks of a tile's patch: chunk c = tid % 16 of
+  // the patch pixels q = tid / 16, + 16, ...; fn(q, p) gets each with its
+  // source pixel p (-1 off the image). The patch coordinates (image, row,
+  // column) advance incrementally: no division per pixel.
+  const int c16 = tid & 15;
+  auto walk = [&](int tile, auto&& fn) {
+    int n0, y0, x0;
+    origin(tile, n0, y0, x0);
+    int q = tid >> 4;
+    int gi = q / img_px, py = (q - gi * img_px) / pw;
+    int px = q - gi * img_px - py * pw;
+    for (; q < patch_px; q += C3_THREADS / 16) {
+      const int n = n0 + gi, y = y0 + py - 1, x = x0 + px - 1;
+      fn(q, (n < N && y >= 0 && y < H && x >= 0 && x < W) ? (n * H + y) * W + x : -1);
+      px += C3_THREADS / 16;
+      while (px >= pw) {
+        px -= pw;
+        if (++py == plan.rows + 2) {
+          py = 0;
+          ++gi;
+        }
       }
-      *reinterpret_cast<uint4*>(&As[r * C3_LDA + c8]) = val;
     }
-    // B: this tap's 128 x 32 weights = 512 chunks; 4 per thread.
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int e = tid + it * C3_THREADS;
-      const int r = e >> 2;
-      const int c8 = (e & 3) * 8;
-      *reinterpret_cast<uint4*>(&Bs[r * C3_LDB + c8]) = *reinterpret_cast<const uint4*>(
-          w2 + ((size_t)tap * C3_CIN + r) * C3_COUT + c8);
-    }
-    __syncthreads();
-    wmma::fill_fragment(part[0], 0.0f);
-    wmma::fill_fragment(part[1], 0.0f);
-#pragma unroll
-    for (int k = 0; k < C3_CIN; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b0, b1;
-      wmma::load_matrix_sync(af, &As[(warp * 16) * C3_LDA + k], C3_LDA);
-      wmma::load_matrix_sync(b0, &Bs[k * C3_LDB], C3_LDB);
-      wmma::load_matrix_sync(b1, &Bs[k * C3_LDB + 16], C3_LDB);
-      wmma::mma_sync(part[0], af, b0, part[0]);
-      wmma::mma_sync(part[1], af, b1, part[1]);
-    }
-    // Accumulator fragments of one shape share their element layout, so
-    // the per-tap rounding is elementwise.
-#pragma unroll
-    for (int f = 0; f < 2; ++f)
-#pragma unroll
-      for (int q = 0; q < part[f].num_elements; ++q)
-        total[f].x[q] += RoundTaps ? round_bf16(part[f].x[q]) : part[f].x[q];
-    __syncthreads();
-  }
+  };
+  auto stage = [&](int tile, int buf) {
+    const uint32_t base = smem_addr(patch(buf));
+    walk(tile, [&](int q, int p) {
+      cp_async16(base + q * C3_PIXEL_BYTES + ((c16 ^ (q & 7)) << 4),
+                 p >= 0 ? src.row(p) + c16 * 8 : w2, p >= 0);
+    });
+  };
 
-  float* st = stage[warp];
-#pragma unroll
-  for (int f = 0; f < 2; ++f) {
-    wmma::store_matrix_sync(st, total[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int r = lane >> 1;
-    const int c = (lane & 1) * 8;
-    const int p = p0 + warp * 16 + r;
-    if (p < P)
-      *reinterpret_cast<uint4*>(out + (size_t)p * ld + c_off + f * 16 + c) =
-          pack8(st + r * 16 + c);
-    __syncwarp();
+  for (int e = tid; e < 9 * C3_CIN * 4; e += C3_THREADS) {
+    const int r = e >> 2, c = e & 3;
+    cp_async16(smem_addr(wsm + r * 64 + ((c ^ ((r >> 1) & 3)) << 4)), w2 + r * C3_COUT + c * 8,
+               true);
   }
+  int buf = 0;
+  if (blockIdx.x < n_tiles) stage(blockIdx.x, 0);
+  cp_async_commit();
+
+  const int g = lane >> 2, t = lane & 3;
+  // Per-lane ldmatrix constants: the 8-channel half of an A fragment row
+  // (hi), and a B row's weight address within a tap's 16-row slice with its
+  // swizzled 8-column chunk for each pair of 8-column n-blocks (bsw).
+  const int hi = lane >> 4;
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t wbase = smem_addr(wsm) + brow * 64;
+  uint32_t bsw[2];
+#pragma unroll
+  for (int n2 = 0; n2 < 2; ++n2) bsw[n2] = ((n2 * 2 + hi) ^ ((brow >> 1) & 3)) << 4;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    if (tile + gridDim.x < n_tiles) stage(tile + gridDim.x, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    int n0, y0, x0;
+    origin(tile, n0, y0, x0);
+    unsigned char* pb = patch(buf);
+    if (!Src::kIdentity) {
+      walk(tile, [&](int q, int p) {
+        if (p < 0) return;
+        uint4* v = reinterpret_cast<uint4*>(pb + q * C3_PIXEL_BYTES + ((c16 ^ (q & 7)) << 4));
+        *v = src.apply(p, c16 * 8, *v);
+      });
+      __syncthreads();
+    }
+    const int gn = min(plan.images, N - n0);
+    const int th = min(plan.rows, H - y0);
+    const int tw = min(plan.cols, W - x0);
+    const int per_img = th * tw;
+    const int M = gn * per_img;
+    const uint32_t pbase = smem_addr(pb);
+    for (int u = warp * C3_UNIT; u < M; u += 8 * C3_UNIT) {
+      // This lane's A row in each 16-pixel fragment: its patch pixel.
+      int qc[2];
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int m = min(u + f * 16 + (lane & 15), M - 1);
+        const int gi = m / per_img;
+        const int r = m - gi * per_img;
+        const int yy = r / tw;
+        qc[f] = gi * img_px + (yy + 1) * pw + (r - yy * tw) + 1;
+      }
+      // Two register stages of fragments: the next step's loads are issued
+      // before this step's MMAs.
+      uint32_t af[2][2][4], bfr[2][2][4];
+      float total[2][4][4];
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) total[f][n][q] = 0.0f;
+      c3_load(0, 0, qc, pw, hi, pbase, wbase, bsw, af[0], bfr[0]);
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        float part[2][4][4];
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) part[f][n][q] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < C3_CIN / 16; ++ks) {
+          const int st = ks & 1;
+          if (ks + 1 < C3_CIN / 16)
+            c3_load(tap, ks + 1, qc, pw, hi, pbase, wbase, bsw, af[st ^ 1], bfr[st ^ 1]);
+          else if (tap < 8)
+            c3_load(tap + 1, 0, qc, pw, hi, pbase, wbase, bsw, af[st ^ 1], bfr[st ^ 1]);
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int n2 = 0; n2 < 2; ++n2) {
+              mma_16816(part[f][2 * n2], af[st][f], bfr[st][n2][0], bfr[st][n2][1]);
+              mma_16816(part[f][2 * n2 + 1], af[st][f], bfr[st][n2][2], bfr[st][n2][3]);
+            }
+        }
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              total[f][n][q] += RoundTaps ? round_bf16(part[f][n][q]) : part[f][n][q];
+      }
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int m = u + f * 16 + g + 8 * half;
+          if (m >= M) continue;
+          const int gi = m / per_img;
+          const int r = m - gi * per_img;
+          const int yy = r / tw;
+          const size_t p = ((size_t)(n0 + gi) * H + y0 + yy) * W + x0 + (r - yy * tw);
+          bf16* o = out + p * ld + c_off + 2 * t;
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            *reinterpret_cast<uint32_t*>(o + n * 8) =
+                pack2(total[f][n][2 * half], total[f][n][2 * half + 1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+// The 3x3's source where it lies in device memory as it is: K2's and
+// K7's h2 scratch (P, 128).
+struct RawRows {
+  static constexpr bool kIdentity = true;
+  const bf16* h2;
+  __device__ const bf16* row(int p) const { return h2 + (size_t)p * C3_CIN; }
+  __device__ uint4 apply(int, int, uint4 v) const { return v; }
+};
+
+// Launch the 3x3 above with `plan` on `stream`.
+template <class Src, bool RoundTaps = true>
+cudaError_t conv3x3(Src src, const bf16* w2, bf16* out, int N, int H, int W, int ld,
+                    int c_off, Conv3x3Plan plan, cudaStream_t stream) {
+  static const cudaError_t set =
+      cudaFuncSetAttribute(conv3x3_kernel<Src, RoundTaps>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, C3_SMEM_MAX);
+  if (set != cudaSuccess) return set;
+  if (N * H * W == 0) return cudaGetLastError();
+  conv3x3_kernel<Src, RoundTaps><<<plan.grid, C3_THREADS, plan.smem_bytes, stream>>>(
+      src, w2, out, N, H, W, ld, c_off, plan);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

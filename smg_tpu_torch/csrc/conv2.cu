@@ -24,10 +24,11 @@
 // What bounds it on the H100: per 104-image trunk pass at 224 the 58 calls
 // read h1 (128 bf16 per pixel) and write 32 channels: ~1.12 GB, ~0.34 ms
 // at 3.35 TB/s, against 259 GFLOP (~0.26 ms at the bf16 tensor peak), so
-// bytes by a little. The design: common.cuh's conv3x3_kernel with a source
-// functor that applies BN2 + ReLU while it stages h1, so h2 never exists in
-// device memory; the nine shifted reads of a tile hit L1/L2, not HBM.
-// WMMA tiles with one shared-memory stage: simple first, fast later.
+// bytes by a little. The design: common.cuh's conv3x3_kernel (the 3x3 of
+// K2, K6a and K7 too) with a source whose prologue is BN2 + ReLU: the raw
+// h1 patch is staged by cp.async and transformed in shared memory, in-image
+// pixels only, so h2 never exists in device memory and the padding stays
+// zero.
 
 #include "common.cuh"
 
@@ -37,14 +38,16 @@ using smg::bf16;
 
 constexpr int BOTTLENECK = 128;
 
-// conv2's source: h2 = relu(h1 a + b), computed from h1 while it is staged.
+// conv2's source: h2 = relu(h1 a + b), computed from the staged h1.
 struct EvalH2Rows {
+  static constexpr bool kIdentity = false;
   const bf16* h1;  // (P, 128)
   const float* a;
   const float* b;
-  __device__ uint4 load8(int p, int c8) const {
+  __device__ const bf16* row(int p) const { return h1 + (size_t)p * BOTTLENECK; }
+  __device__ uint4 apply(int, int c8, uint4 raw) const {
     float v[8];
-    smg::unpack8(*reinterpret_cast<const uint4*>(h1 + (size_t)p * BOTTLENECK + c8), v);
+    smg::unpack8(raw, v);
 #pragma unroll
     for (int c = 0; c < 8; ++c) v[c] = smg::bn_relu(v[c], a[c8 + c], b[c8 + c]);
     return smg::pack8(v);
@@ -53,12 +56,11 @@ struct EvalH2Rows {
 
 }  // namespace
 
+// c3_*: the 3x3's tile plan (ops/conv2.py::conv3x3_plan).
 extern "C" int smg_conv2_bn_relu(const bf16* h1, const float* a, const float* b,
                                  const bf16* w2, bf16* out, int N, int H, int W,
-                                 int ld, cudaStream_t stream) {
-  const int P = N * H * W;
-  if (P > 0)
-    smg::conv3x3_kernel<<<(P + smg::C3_BM - 1) / smg::C3_BM, smg::C3_THREADS, 0, stream>>>(
-        EvalH2Rows{h1, a, b}, w2, out, N, H, W, ld, 0);
-  return (int)cudaGetLastError();
+                                 int ld, int c3_images, int c3_rows, int c3_cols,
+                                 int c3_grid, int c3_smem, cudaStream_t stream) {
+  const smg::Conv3x3Plan plan{c3_images, c3_rows, c3_cols, c3_grid, c3_smem};
+  return (int)smg::conv3x3(EvalH2Rows{h1, a, b}, w2, out, N, H, W, ld, 0, plan, stream);
 }

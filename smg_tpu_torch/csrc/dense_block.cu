@@ -30,12 +30,12 @@
 // 13 MB for block 1 at 640, and only block 4 at 224 fits one SM's 227 KB
 // of shared memory. So this first design keeps the buffer in device memory
 // (L2 holds 50 MB) and runs the layers inside the one call as 2 L + 1
-// launches on the caller's stream: per layer the shared tiled GEMM
-// (common.cuh) with norm1 + ReLU in its loader and norm2 + ReLU on the
-// unrounded f32 accumulator in its epilogue (h2 to a bf16 scratch), then
-// common.cuh's 3x3 kernel writing the 32 channels in place; then one
-// epilogue kernel (the GEMM with the BN/ReLU/bf16-pool loader, or an
-// elementwise norm5). The TPU's B_tile, row bands, halo, width and channel
+// launches on the caller's stream: per layer K2's pipelined bottleneck
+// GEMM (common.cuh's gemm_bnrelu_kernel: norm1 + ReLU on the A fragments)
+// with norm2 + ReLU on the unrounded f32 sum in its epilogue (h2 to a bf16
+// scratch), then K2's 3x3 (common.cuh's conv3x3_kernel: resident tap
+// weights, halo patches staged once) writing the 32 channels in place; then one epilogue kernel (the WMMA GEMM with the
+// BN/ReLU/bf16-pool loader, or an elementwise norm5). The TPU's B_tile, row bands, halo, width and channel
 // padding and selection-matrix append have no counterpart: every launch
 // masks its own edges, for any N, H, W. Per-image residency in shared
 // memory (clusters' distributed shared memory for blocks 2-3), wgmma and
@@ -51,40 +51,6 @@ constexpr int BOTTLENECK = 128;
 constexpr int GROWTH = 32;
 constexpr int EPILOGUE_TRANSITION = 0;
 constexpr int EPILOGUE_FINAL_BN = 1;
-
-// y1 = relu(x a1 + b1) of the block buffer's prefix (rounded when staged).
-struct BnReluLoader {
-  const bf16* x;   // block buffer (P, ld)
-  const float* a;
-  const float* b;
-  int ld;
-  __device__ void load8(int p, int k, float* v) const {
-    float xv[8];
-    smg::unpack8(*reinterpret_cast<const uint4*>(x + (size_t)p * ld + k), xv);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) v[c] = smg::bn_relu(xv[c], a[k + c], b[k + c]);
-  }
-};
-
-// h2 = bf16(relu(t a2 + b2)) on the f32 accumulator t, not rounded first.
-struct Bn2F32Epilogue {
-  bf16* h2;        // (P, 128)
-  const float* a2;
-  const float* b2;
-  __device__ void store8(int p, int col, const float* v) const {
-    float o[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) o[c] = smg::bn_relu(v[c], a2[col + c], b2[col + c]);
-    *reinterpret_cast<uint4*>(h2 + (size_t)p * BOTTLENECK + col) = smg::pack8(o);
-  }
-};
-
-struct H2Rows {
-  const bf16* h2;  // (P, 128)
-  __device__ uint4 load8(int p, int c8) const {
-    return *reinterpret_cast<const uint4*>(h2 + (size_t)p * BOTTLENECK + c8);
-  }
-};
 
 // The transition's A operand at pooled pixel q: hs = bf16(relu(x at + bt))
 // at (2i, 2j), (2i+1, 2j), (2i, 2j+1), (2i+1, 2j+1); the row pairs summed
@@ -145,43 +111,39 @@ __global__ void final_bn_kernel(const bf16* __restrict__ x, const float* __restr
   *reinterpret_cast<uint4*>(out + p * out_ld + c) = smg::pack8(v);
 }
 
-template <bool RoundTaps>
-cudaError_t conv3x3(const bf16* h2, const bf16* w2, bf16* buf, int N, int H, int W,
-                    int ld, int c_off, cudaStream_t stream) {
-  const int P = N * H * W;
-  smg::conv3x3_kernel<H2Rows, RoundTaps>
-      <<<(P + smg::C3_BM - 1) / smg::C3_BM, smg::C3_THREADS, 0, stream>>>(
-          H2Rows{h2}, w2, buf, N, H, W, ld, c_off);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // a1, b1: the L layers' norm1 affines concatenated (sum_l C_l); w1: their
 // (C_l, 128) bottleneck weights stacked row-wise; a2, b2 (L, 128); w2
 // (L, 9, 128, 32); at, bt (Cf,); wt (Cf, C_out) for the transition (unused
-// by final_bn); h2 scratch (P, 128).
+// by final_bn); h2 scratch (P, 128); gemm_bm: the bottleneck GEMM's tile
+// rows (128 or 64); c3_*: the 3x3's tile plan (ops/conv2.py::conv3x3_plan).
 extern "C" int smg_dense_block(bf16* buf, const float* a1, const float* b1,
                                const bf16* w1, const float* a2, const float* b2,
                                const bf16* w2, const float* at, const float* bt,
                                const bf16* wt, bf16* h2, bf16* out, int N, int H,
                                int W, int C0, int L, int C_out, int out_ld,
-                               int epilogue, int taps_packed, cudaStream_t stream) {
+                               int epilogue, int taps_packed, int gemm_bm, int c3_images,
+                               int c3_rows, int c3_cols, int c3_grid, int c3_smem,
+                               cudaStream_t stream) {
   const int P = N * H * W;
+  const smg::Conv3x3Plan plan{c3_images, c3_rows, c3_cols, c3_grid, c3_smem};
   const int Cf = C0 + GROWTH * L;
   if (P == 0) return (int)cudaGetLastError();
   size_t off = 0;
   for (int l = 0; l < L; ++l) {
     const int c_in = C0 + GROWTH * l;
-    dim3 grid((P + smg::GEMM_BM - 1) / smg::GEMM_BM, BOTTLENECK / smg::GEMM_BN);
-    smg::gemm_bf16_kernel<<<grid, smg::GEMM_THREADS, 0, stream>>>(
-        BnReluLoader{buf, a1 + off, b1 + off, Cf}, w1 + off * BOTTLENECK, BOTTLENECK, P,
-        c_in, Bn2F32Epilogue{h2, a2 + (size_t)l * BOTTLENECK, b2 + (size_t)l * BOTTLENECK});
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = smg::gemm_bnrelu(
+        gemm_bm, buf, Cf, a1 + off, b1 + off, w1 + off * BOTTLENECK, P, c_in,
+        smg::Bn2Epilogue<false>{h2, a2 + (size_t)l * BOTTLENECK, b2 + (size_t)l * BOTTLENECK},
+        stream);
     if (err != cudaSuccess) return (int)err;
     const bf16* w2l = w2 + (size_t)l * 9 * BOTTLENECK * GROWTH;
-    err = taps_packed ? conv3x3<true>(h2, w2l, buf, N, H, W, Cf, c_in, stream)
-                      : conv3x3<false>(h2, w2l, buf, N, H, W, Cf, c_in, stream);
+    const smg::RawRows src{h2};
+    err = taps_packed ? smg::conv3x3<smg::RawRows, true>(src, w2l, buf, N, H, W, Cf, c_in,
+                                                         plan, stream)
+                      : smg::conv3x3<smg::RawRows, false>(src, w2l, buf, N, H, W, Cf, c_in,
+                                                          plan, stream);
     if (err != cudaSuccess) return (int)err;
     off += c_in;
   }

@@ -40,7 +40,8 @@
 // save VMEM (tens of MB at these shapes). The weight gradients reduce over
 // every pixel of every image: split-K partial tiles, then a fixed-order sum
 // by the caller, with no float atomics, so a repeated run gives the same
-// bits. Simple WMMA tiles with one shared-memory stage; no wgmma or TMA yet.
+// bits. The forward's 3x3 is common.cuh's conv3x3_kernel (K2's);
+// the GEMMs are simple WMMA tiles with one shared-memory stage.
 //
 // Dropped from the TPU kernel, as VMEM/lane devices with no job here: the
 // width padding to 8 and its pad-column masks, the pltpu.roll column
@@ -232,12 +233,20 @@ struct Y2Loader {
   }
 };
 
-// conv2's source in the forward: y2 computed from h1 while it is staged.
+// conv2's source in the forward: y2 computed from the staged h1.
 struct Y2Rows {
-  Y2Loader y2;
-  __device__ uint4 load8(int p, int c8) const {
+  static constexpr bool kIdentity = false;
+  const bf16* h1;
+  const float* a;  // (N, 128) per-image affine
+  const float* b;
+  int HW;
+  __device__ const bf16* row(int p) const { return h1 + (size_t)p * BOTTLENECK; }
+  __device__ uint4 apply(int p, int c8, uint4 raw) const {
+    const size_t o = (size_t)(p / HW) * BOTTLENECK + c8;
     float v[8];
-    y2.load8(p, c8, v);
+    smg::unpack8(raw, v);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[c] = smg::bn_relu(v[c], a[o + c], b[o + c]);
     return smg::pack8(v);
   }
 };
@@ -328,11 +337,14 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // K6a. buf (P, ld) bf16: reads [0, C_in), writes [C_in, C_in + 32).
 // w1 (C_in, 128), w2 (9, 128, 32) bf16; s*, bi* f32. Outputs h1 (P, 128)
 // bf16, st1 (4, N, C_in) and st2 (4, N, 128) f32: mean, var, a, b.
+// c3_*: the 3x3's tile plan (ops/conv2.py::conv3x3_plan).
 extern "C" int smg_dense_layer_train_fwd(bf16* buf, const bf16* w1, const float* s1,
                                          const float* bi1, const bf16* w2,
                                          const float* s2, const float* bi2, bf16* h1,
                                          float* st1, float* st2, int N, int H, int W,
-                                         int ld, int c_in, cudaStream_t stream) {
+                                         int ld, int c_in, int c3_images, int c3_rows,
+                                         int c3_cols, int c3_grid, int c3_smem,
+                                         cudaStream_t stream) {
   const int HW = H * W, P = N * HW;
   if (P == 0) return (int)cudaGetLastError();
   const dim3 red(RED_C, RED_R);
@@ -344,9 +356,11 @@ extern "C" int smg_dense_layer_train_fwd(bf16* buf, const bf16* w1, const float*
       c_in, H1Epilogue{h1});
   moments_kernel<<<dim3(N, BOTTLENECK / RED_C), red, 0, stream>>>(h1, BOTTLENECK, BOTTLENECK,
                                                                   HW, N, s2, bi2, st2);
-  smg::conv3x3_kernel<<<cdiv(P, smg::C3_BM), smg::C3_THREADS, 0, stream>>>(
-      Y2Rows{Y2Loader{h1, st2 + 2 * nc2, st2 + 3 * nc2, HW}}, w2, buf, N, H, W, ld, c_in);
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const smg::Conv3x3Plan plan{c3_images, c3_rows, c3_cols, c3_grid, c3_smem};
+  return (int)smg::conv3x3(Y2Rows{h1, st2 + 2 * nc2, st2 + 3 * nc2, HW}, w2, buf, N, H, W, ld,
+                           c_in, plan, stream);
 }
 
 // K6b. dbuf (P, ld) f32: reads the layer's cotangent [C_in, C_in + 32) and

@@ -11,6 +11,7 @@ is ignored by git. Nothing here runs when the package is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,21 +36,25 @@ F = ctypes.c_float
 # C entry points: name -> argument types. Every entry returns the
 # cudaGetLastError() code right after its launches (0 = success).
 SIGNATURES = {
-    # rows (9,S,B), cols (9,T,B), out (3,S,B); S, T, B, K; 8 gains; stream
-    "smg_contact_forces": [P, P, P, I, I, I, I] + [F] * 8 + [P],
+    # rows (9,S,B), cols (9,T,B), out (3,S,B); S, T, B, K; 8 gains; the
+    # plan's scenes, rows, chunks, slab, smem bytes; stream
+    "smg_contact_forces": [P, P, P, I, I, I, I] + [F] * 8 + [I] * 5 + [P],
     # y, a, b, out; N, H, W, C, out_ld; stream
     "smg_stem_pool": [P, P, P, P, I, I, I, I, I, P],
     # x, a, b, wt, out; N, H, W, C, x_ld, C_out, out_ld; stream
     "smg_transition": [P, P, P, P, P, I, I, I, I, I, I, I, P],
-    # buf, a1, b1, w1, a2, b2, w2, h2 scratch; N, H, W, ld, C_in; stream
-    "smg_dense_layer": [P] * 8 + [I, I, I, I, I, P],
-    # h1, a, b, w2, out; N, H, W, out_ld; stream
-    "smg_conv2_bn_relu": [P] * 5 + [I] * 4 + [P],
+    # buf, a1, b1, w1, a2, b2, w2, h2 scratch; N, H, W, ld, C_in; the
+    # GEMM's tile rows; the 3x3 plan (5 ints, conv2.Conv3x3Plan.args); stream
+    "smg_dense_layer": [P] * 8 + [I] * 6 + [I] * 5 + [P],
+    # h1, a, b, w2, out; N, H, W, out_ld; the 3x3 plan; stream
+    "smg_conv2_bn_relu": [P] * 5 + [I] * 4 + [I] * 5 + [P],
     # buf, a1, b1, w1, a2, b2, w2, at, bt, wt, h2 scratch, out;
-    # N, H, W, C0, L, C_out, out_ld, epilogue, taps_packed; stream
-    "smg_dense_block": [P] * 12 + [I] * 9 + [P],
-    # buf, w1, s1, bi1, w2, s2, bi2, h1, st1, st2; N, H, W, ld, C_in; stream
-    "smg_dense_layer_train_fwd": [P] * 10 + [I] * 5 + [P],
+    # N, H, W, C0, L, C_out, out_ld, epilogue, taps_packed; the GEMM's tile
+    # rows; the 3x3 plan; stream
+    "smg_dense_block": [P] * 12 + [I] * 10 + [I] * 5 + [P],
+    # buf, w1, s1, bi1, w2, s2, bi2, h1, st1, st2; N, H, W, ld, C_in; the
+    # 3x3 plan; stream
+    "smg_dense_layer_train_fwd": [P] * 10 + [I] * 5 + [I] * 5 + [P],
     # buf, dbuf, h1, w1t, w2t, s1, bi1, mean1, var1, s2, bi2, mean2, var2,
     # aff1, aff2, du2, dh1, du1, sums1, sums2, part1, part2;
     # N, H, W, ld, C_in, ldw1, split1, chunk1, split2, chunk2; stream
@@ -160,6 +165,20 @@ def check_nhwc_view(out: torch.Tensor, name: str, dtype, shape) -> int:
         raise ValueError(f"{name}: expected an NHWC channel slice with a "
                          f"pixel stride divisible by 8, got {out.stride()}")
     return ld
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the tile plans' target)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def check_aligned(**tensors) -> None:
+    """Operands that the kernels copy 16 bytes at a time (cp.async) must
+    start on a 16-byte boundary."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype, shape=None,

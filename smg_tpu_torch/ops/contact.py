@@ -9,15 +9,57 @@ m_row against the gripper, plus smooth Coulomb friction
 mu*fn*tanh(|vt|/v_eps) (mu_grip for gripper sources). Same-owner pairs
 (j // K) and dead spheres are masked. All state is scene-minor SoA:
 (S, B) rows and (T, B) columns.
+
+The kernel's geometry is planned here (contact_plan) and passed to it as
+ints: a block holds `scenes` x `rows` (row sphere, scene) pairs, each
+summed by `chunks` threads over the contiguous source chunks
+[c T // chunks, (c + 1) T // chunks), whose partials are added in chunk
+order; the sources are staged in shared memory `slab` per chunk at a time.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from smg_tpu_torch.ops import _build
 
 launches = 0
+
+SMEM_LIMIT = 48 * 1024   # static shared memory of one block
+WIDE_B = 256             # from here one warp of scenes per row fills the card
+
+
+class ContactPlan(NamedTuple):
+    scenes: int       # scenes per block (threadIdx.x)
+    rows: int         # row spheres per block (threadIdx.y)
+    chunks: int       # source chunks per (row, scene) (threadIdx.z)
+    slab: int         # sources of each chunk staged per shared-memory pass
+    smem_bytes: int
+    grid: tuple       # (scene blocks, row blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def contact_plan(S: int, T: int, B: int) -> ContactPlan:
+    """K1's launch geometry for S rows, T sources and B scenes.
+
+    Few scenes (B < WIDE_B): 8 scenes x 2 rows per block and 16 source
+    chunks, so B = 32 gives 4 x 54 = 216 blocks of 256 threads, each
+    thread summing ~9 sources. Many scenes: 32 scenes x 8 rows, one chunk:
+    the scene and row axes alone fill the card."""
+    if B >= WIDE_B:
+        scenes, rows, chunks = 32, 8, 1
+    else:
+        scenes, rows, chunks = min(8, B), 2, 16
+    per_source = 9 * chunks * scenes * 4
+    longest = -(-T // chunks)
+    slab = max(1, min(longest, SMEM_LIMIT // per_source))
+    partials = 3 * chunks * rows * scenes * 4 if chunks > 1 else 0
+    smem = max(slab * per_source, partials)
+    return ContactPlan(scenes, rows, chunks, slab, smem,
+                       (-(-B // scenes), -(-S // rows)))
 
 
 def pairwise_forces_plain(row_state, col_state, K: int, *, kn, zeta, share,
@@ -90,10 +132,12 @@ def pairwise_forces_stacked(rows, cols, K: int, *, kn, zeta, share, mu,
     if cols.device != rows.device:
         raise ValueError("rows and cols must be on the same device")
     out = torch.empty((3, S, B), dtype=torch.float32, device=rows.device)
+    plan = contact_plan(S, T, B)
     _build.launch(
         "smg_contact_forces", rows.data_ptr(), cols.data_ptr(),
         out.data_ptr(), S, T, B, K, kn, zeta, share, mu, mu_grip, v_eps,
-        max_pen, max_vn,
+        max_pen, max_vn, plan.scenes, plan.rows, plan.chunks, plan.slab,
+        plan.smem_bytes,
     )
     launches += 1
     return out[0], out[1], out[2]

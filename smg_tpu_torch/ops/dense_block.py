@@ -30,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from smg_tpu_torch.ops import _build
-from smg_tpu_torch.ops.conv2 import BOTTLENECK, GROWTH, N_TAPS, conv3x3_plain
+from smg_tpu_torch.ops.conv2 import BOTTLENECK, GROWTH, N_TAPS, conv3x3_plain, conv3x3_plan
+from smg_tpu_torch.ops.dense_layer import gemm_rows
 
 launches = 0
 
@@ -135,12 +136,15 @@ def dense_block_apply(buf, packed, ep, epilogue: str, *, taps_packed: bool = Tru
     if out is None:
         out = torch.empty(out_shape, dtype=torch.bfloat16, device=buf.device)
     out_ld = _build.check_nhwc_view(out, "out", torch.bfloat16, out_shape)
+    _build.check_aligned(buf=buf, **{k: packed[k] for k in ("a1", "b1", "w1", "w2")})
     h2 = torch.empty((N * H * W, BOTTLENECK), dtype=torch.bfloat16, device=buf.device)
+    sms = _build.sm_count(buf.device)
     _build.launch("smg_dense_block", buf.data_ptr(), packed["a1"].data_ptr(),
                   packed["b1"].data_ptr(), packed["w1"].data_ptr(),
                   packed["a2"].data_ptr(), packed["b2"].data_ptr(),
                   packed["w2"].data_ptr(), ep["at"].data_ptr(), ep["bt"].data_ptr(),
                   wt_ptr, h2.data_ptr(), out.data_ptr(), N, H, W, c0, L, C_out,
-                  out_ld, code, int(taps_packed))
+                  out_ld, code, int(taps_packed), gemm_rows(N * H * W, sms),
+                  *conv3x3_plan(N, H, W, sms).args())
     launches += 1
     return out

@@ -23,12 +23,22 @@ counterpart here.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from smg_tpu_torch.ops import _build
-from smg_tpu_torch.ops.conv2 import BOTTLENECK, GROWTH, N_TAPS, conv3x3_plain
+from smg_tpu_torch.ops.conv2 import (BOTTLENECK, GROWTH, H100_SMS, N_TAPS, conv3x3_plain,
+                                     conv3x3_plan)
 
 launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_rows(P: int, sms: int = H100_SMS) -> int:
+    """The bottleneck GEMM's tile rows: 128, or 64 where 128-row tiles would
+    not fill one wave of `sms` blocks."""
+    return 128 if -(-P // 128) >= sms else 64
 
 
 def dense_layer_plain(buf, c_in, a1, b1, w1, a2, b2, w2):
@@ -63,10 +73,13 @@ def dense_layer(buf, c_in: int, a1, b1, w1, a2, b2, w2):
     _build.check_cuda(w2, "w2", torch.bfloat16, (N_TAPS, BOTTLENECK, GROWTH))
     if c_in % 32 or c_in + GROWTH > ld or ld % 8:
         raise ValueError(f"unsupported layer: C_in {c_in}, buffer {ld}")
+    _build.check_aligned(buf=buf, a1=a1, b1=b1, w1=w1, w2=w2)
     h2 = torch.empty((N * H * W, BOTTLENECK), dtype=torch.bfloat16,
                      device=buf.device)
+    sms = _build.sm_count(buf.device)
     _build.launch("smg_dense_layer", buf.data_ptr(), a1.data_ptr(),
                   b1.data_ptr(), w1.data_ptr(), a2.data_ptr(), b2.data_ptr(),
-                  w2.data_ptr(), h2.data_ptr(), N, H, W, ld, c_in)
+                  w2.data_ptr(), h2.data_ptr(), N, H, W, ld, c_in,
+                  gemm_rows(N * H * W, sms), *conv3x3_plan(N, H, W, sms).args())
     launches += 1
     return buf

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from smg_tpu_torch.ops import _build
+from smg_tpu_torch.ops.conv2 import conv3x3_plan
 
 fwd_launches = 0
 bwd_launches = 0
@@ -161,10 +162,11 @@ def layer_fwd(buf, c_in: int, w1, s1, bi1, w2, s2, bi2):
     h1 = torch.empty((N, H, W, BOTTLENECK), dtype=torch.bfloat16, device=dev)
     st1 = torch.empty((4, N, c_in), dtype=torch.float32, device=dev)
     st2 = torch.empty((4, N, BOTTLENECK), dtype=torch.float32, device=dev)
+    _build.check_aligned(w2=w2)
     _build.launch("smg_dense_layer_train_fwd", buf.data_ptr(), w1.data_ptr(),
                   s1.data_ptr(), bi1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
                   bi2.data_ptr(), h1.data_ptr(), st1.data_ptr(), st2.data_ptr(),
-                  N, H, W, ld, c_in)
+                  N, H, W, ld, c_in, *conv3x3_plan(N, H, W, _build.sm_count(dev)).args())
     fwd_launches += 1
     return h1, st1[0], st1[1], st2[0], st2[1]
 

@@ -58,6 +58,29 @@ def test_contact(dev, B):
     assert float(((got - want).abs() - 1e-5 * want.abs()).max()) <= 1e-5 * fmax
 
 
+@pytest.mark.parametrize("B", [1, 5, 130, 1024])
+def test_contact_repeatable(dev, B):
+    """K1 sums each (row, scene) in a fixed order (chunks in order, no
+    atomics): two runs on the same input give the same bits."""
+    from smg_tpu_torch.ops import contact
+
+    g = _gen(dev, B + 1)
+    S, T = 108, 145
+    rows = torch.rand((9, S, B), generator=g, device=dev) * 0.06
+    cols = torch.rand((9, T, B), generator=g, device=dev) * 0.06
+    for st in (rows, cols):
+        st[3:6] = st[3:6] * 10 - 0.3
+        st[6] = 0.006 + st[6] * 0.2
+        st[7] = 0.02 + st[7]
+        st[8] = (st[8] > 0.01).float()
+    gains = dict(kn=800.0, zeta=0.6, share=4.0, mu=0.8, mu_grip=0.6,
+                 v_eps=0.01, max_pen=0.006, max_vn=0.5)
+    first = torch.stack(contact.pairwise_forces_stacked(rows, cols, 9, **gains))
+    second = torch.stack(contact.pairwise_forces_stacked(rows, cols, 9, **gains))
+    assert float(first.abs().max()) > 0
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("H,C_in,ld", [(7, 64, 128), (8, 224, 256),
                                        (5, 992, 1024)])
 def test_dense_layer(dev, H, C_in, ld):
@@ -79,6 +102,87 @@ def test_dense_layer(dev, H, C_in, ld):
     assert torch.equal(buf[..., :C_in], ref[..., :C_in])
     assert torch.equal(buf[..., C_in + 32:], ref[..., C_in + 32:])
     assert _rel(buf[..., C_in:C_in + 32], ref[..., C_in:C_in + 32]) <= TOL_BF16
+
+
+# The 3x3's tilings (ops/conv2.py::conv3x3_plan): one row of 7 (13 images,
+# tile boundaries inside every image), bands of 9 rows whose last has 8 (26
+# rows), two whole images per tile, and 3 x 40 tiles whose last row band has
+# 2 (5 x 160).
+TILINGS = [((13, 7, 7), (1, 1, 7)), ((48, 26, 26), (1, 9, 26)), ((300, 7, 7), (2, 7, 7)),
+           ((2, 5, 160), (1, 3, 40))]
+
+
+@pytest.mark.parametrize("shape,tile", TILINGS)
+def test_dense_layer_tilings(dev, shape, tile):
+    """K2 at block-4-like and block-1-like shapes under each tiling."""
+    from smg_tpu_torch.ops import _build, conv2
+    from smg_tpu_torch.ops import dense_layer as k2
+
+    plan = conv2.conv3x3_plan(*shape, _build.sm_count(dev))
+    assert (plan.images, plan.rows, plan.cols) == tile
+    C_in = 992 if shape[1] == 7 else 64
+    g = _gen(dev, sum(shape))
+    buf = torch.randn(shape + (C_in + 32,), generator=g, device=dev).to(torch.bfloat16)
+    ops = _affine(g, dev, C_in) + (
+        (torch.randn((C_in, 128), generator=g, device=dev) * C_in ** -0.5).to(torch.bfloat16),
+    ) + _affine(g, dev, 128) + (
+        (torch.randn((9, 128, 32), generator=g, device=dev) * 0.03).to(torch.bfloat16),)
+    ref = buf.clone()
+    k2.dense_layer(buf, C_in, *ops)
+    k2.dense_layer_plain(ref, C_in, *ops)
+    assert torch.equal(buf[..., :C_in], ref[..., :C_in])
+    assert _rel(buf[..., C_in:], ref[..., C_in:]) <= TOL_BF16
+
+
+@pytest.mark.parametrize("shape,tile", TILINGS[1:] + [((8, 56, 56), (1, 4, 28))])
+def test_conv2_tilings(dev, shape, tile):
+    """K5 under each tiling, 4 x 28 tiles of 56 x 56 images too, written at
+    a channel offset."""
+    from smg_tpu_torch.ops import _build, conv2
+    from smg_tpu_torch.ops import conv2 as k5
+
+    plan = conv2.conv3x3_plan(*shape, _build.sm_count(dev))
+    assert (plan.images, plan.rows, plan.cols) == tile
+    g = _gen(dev, sum(shape) + 1)
+    bf = torch.bfloat16
+    h1 = torch.randn(shape + (128,), generator=g, device=dev).to(bf)
+    a, b = _affine(g, dev, 128)
+    w2 = (torch.randn((9, 128, 32), generator=g, device=dev) * 0.03).to(bf)
+    buf = torch.zeros(shape + (96,), dtype=bf, device=dev)
+    k5.conv2_bn_relu(h1, a, b, w2, out=buf[..., 32:64])
+    assert _rel(buf[..., 32:64], k5.conv2_bn_relu_plain(h1, a, b, w2)) <= TOL_BF16
+    assert not buf[..., :32].any() and not buf[..., 64:].any()
+
+
+@pytest.mark.parametrize("N,H,W,epilogue,taps_packed", [
+    (48, 26, 26, "transition", True), (300, 8, 6, "final_bn", False),
+    (2, 4, 160, "final_bn", True)])
+def test_dense_block_tilings(dev, N, H, W, epilogue, taps_packed):
+    """K7 with row bands ending inside an image, two-image tiles and column
+    bands (2 x 54 of 4 x 160, the last band 52 wide)."""
+    from smg_tpu_torch.ops import dense_block as k7
+
+    g = _gen(dev, N + H + W)
+    bf, C0, L = torch.bfloat16, 64, 2
+    layers = [(c,) + _affine(g, dev, c)
+              + ((torch.randn((c, 128), generator=g, device=dev) * c ** -0.5).to(bf),)
+              + _affine(g, dev, 128)
+              + ((torch.randn((9, 128, 32), generator=g, device=dev) * 0.03).to(bf),)
+              for c in (C0 + 32 * l for l in range(L))]
+    Cf = C0 + 32 * L
+    at, bt = _affine(g, dev, Cf)
+    if epilogue == "transition":
+        wt = (torch.randn((Cf, 128), generator=g, device=dev) * Cf ** -0.5).to(bf)
+        ep = k7.pack_transition(at, bt, wt)
+    else:
+        ep = k7.pack_final_bn(at, bt)
+    packed = k7.pack_dense_block(layers)
+    buf = torch.randn((N, H, W, Cf), generator=g, device=dev).to(bf)
+    ref = buf.clone()
+    got = k7.dense_block_apply(buf, packed, ep, epilogue, taps_packed=taps_packed)
+    want = k7.dense_block_apply_plain(ref, packed, ep, epilogue, taps_packed)
+    assert _rel(buf[..., C0:], ref[..., C0:]) <= TOL_BF16
+    assert _rel(got, want) <= TOL_BF16
 
 
 @pytest.mark.parametrize("H,C", [(4, 256), (6, 512), (2, 1024)])
