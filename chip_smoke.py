@@ -14,7 +14,9 @@
    yardsticks), K3 at its three shapes,
    K4 at the stem, K5 (the `xla_pk` conv2) at every (H, C_in) at 224 and
    at 640 with 104 images, K6a/K6b (the train-mode dense layer, forward and
-   backward) at every (H, C_in) with 64 images, K7 (the `pallas` dense
+   backward) at every (H, C_in) with 64 images (with their time per dense
+   block split by launch name by the profiler, beside the parts' torch.matmul
+   and torch.nn.grad.conv2d_* yardsticks), K7 (the `pallas` dense
    block) on the four blocks at 224 and at 640 with 104 images, both
    epilogues, taps_packed True and False — with each kernel's and plain
    version's time and the least time the card could take for the same
@@ -361,6 +363,29 @@ def phase_dense_layer(dev):
                        "conv2d_ms": split["conv2d_ms"]}, flops, nbytes, PEAK_BF16)
 
 
+def _profile_by_kernel(fn, reps):
+    """Device ms per call of fn() by kernel name (torch.profiler over
+    `reps` calls), the template arguments and parameters cut off."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = key.split("(")[0].split("<")[0].split("::")[-1].strip() or key[:40]
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
 def dense_layer_split(dev):
     """K2's time per dense block of one 104-image pass at 224, split into
     its two launches (the bottleneck GEMM, the 3x3) by device time per
@@ -370,33 +395,22 @@ def dense_layer_split(dev):
     channels_last on h2 for the 3x3, each timed like the kernels (device_ms).
     Neither computes K2's fused function."""
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from smg_tpu_torch.ops import dense_layer as k2
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     bf, N, reps, rows = torch.bfloat16, STREAMS, 3, []
     for H, C0, L in DENSENET_BLOCKS:
         buf = torch.randn((N, H, H, C0 + 32 * L), generator=gen, device=dev).to(bf)
         layers = _eval_layers(gen, dev, C0, L)
-        for c_in, *ops in layers:
-            k2.dense_layer(buf, c_in, *ops)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for c_in, *ops in layers:
-                    k2.dense_layer(buf, c_in, *ops)
-            torch.cuda.synchronize()
+
+        def block():
+            for c_in, *ops in layers:
+                k2.dense_layer(buf, c_in, *ops)
+
         parts = {"gemm": 0.0, "conv3x3": 0.0, "other": 0.0}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            part = next((p for p in ("gemm", "conv3x3") if p in e.key), "other")
-            parts[part] += dev_us(e) / 1e3 / reps
+        for name, ms in _profile_by_kernel(block, reps).items():
+            parts[next((p for p in ("gemm", "conv3x3") if p in name), "other")] += ms
         mm_ms = conv_ms = 0.0
         h2 = torch.randn((N, 128, H, H), generator=gen, device=dev).to(bf).to(
             memory_format=torch.channels_last)
@@ -762,18 +776,100 @@ def phase_dense_layer_train(dev):
     print(f"K6 one train trunk pass ({len(rows)} layers, {N} images): K6a {tot['fwd']:.3f} ms "
           f"(plain {tot['fwd_plain']:.3f}), K6b {tot['bwd']:.3f} ms (plain "
           f"{tot['bwd_plain']:.3f}); 'conv' autograd forward + backward {tot['conv']:.3f} ms")
+    split = dense_layer_train_split(dev)
     common = {"route": "cuda", "source": "smg_tpu_torch/csrc/dense_layer_train.cu",
-              "library_ms": None, "conv_autograd_fwd_bwd_ms": tot["conv"]}
+              "library_ms": None, "conv_autograd_fwd_bwd_ms": tot["conv"],
+              "library_parts_ms": split["library_ms"]}
     return [
         with_bound({"name": "K6a train dense layer fwd",
                     "replaces": "smg_tpu/ops/dense_layer_train_pallas.py:222",
-                    "max_abs_err": worst_fwd, "ms": tot["fwd"],
+                    "max_abs_err": worst_fwd, "ms": tot["fwd"], "split_ms": split["fwd_ms"],
                     "plain_ms": tot["fwd_plain"], **common}, flops_f, bytes_f, PEAK_BF16),
         with_bound({"name": "K6b train dense layer bwd",
                     "replaces": "smg_tpu/ops/dense_layer_train_pallas.py:442",
-                    "max_abs_err": worst_bwd, "ms": tot["bwd"],
+                    "max_abs_err": worst_bwd, "ms": tot["bwd"], "split_ms": split["bwd_ms"],
                     "plain_ms": tot["bwd_plain"], **common}, flops_b, bytes_b, PEAK_BF16),
     ]
+
+
+def dense_layer_train_split(dev):
+    """K6a's and K6b's device time per dense block of one 64-image train
+    trunk pass at 224, by launch (kernel) name (torch.profiler over 2
+    passes of the block's layers), and the parts' library yardsticks at the
+    same 58 shapes, each timed like the kernels (device_ms) and never
+    called by the port: torch.matmul for the bottleneck GEMM (x w1), dy1
+    (dh1 w1^T) and dw1 (y1^T dh1); torch.nn.grad.conv2d_input and
+    conv2d_weight (bf16, channels_last) for dy2 and dw2. None of them
+    computes K6's fused functions."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from smg_tpu_torch.ops import dense_layer_train as k6
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    bf, N, reps, rows = torch.bfloat16, TRAIN_IMAGES, 2, []
+    for H, C0, L in DENSENET_BLOCKS:
+        C = C0 + 32 * L
+        buf = torch.randn((N, H, H, C), generator=gen, device=dev).to(bf)
+        dbuf = torch.randn((N, H, H, C), generator=gen, device=dev)
+        layers = [_k6_layer(gen, dev, C0 + 32 * l) for l in range(L)]
+        saved = []
+
+        def fwd():
+            saved.clear()
+            for l, ops in enumerate(layers):
+                saved.append(k6.layer_fwd(buf, C0 + 32 * l, *ops))
+
+        fwd_parts = _profile_by_kernel(fwd, reps)
+
+        def bwd():
+            for l in reversed(range(L)):
+                w1, s1, b1, w2, s2, b2 = layers[l]
+                h1, m1, v1, m2, v2 = saved[l]
+                k6.layer_bwd(buf, dbuf, C0 + 32 * l, h1, w1, w2, s1, b1, s2, b2,
+                             m1, v1, m2, v2)
+
+        bwd_parts = _profile_by_kernel(bwd, reps)
+        lib = dict(bottleneck_matmul=0.0, dy1_matmul=0.0, dw1_matmul=0.0,
+                   dy2_conv2d_input=0.0, dw2_conv2d_weight=0.0)
+        dh1 = torch.randn((N * H * H, 128), generator=gen, device=dev).to(bf)
+        dy = torch.randn((N, 32, H, H), generator=gen, device=dev).to(bf).to(
+            memory_format=torch.channels_last)
+        y2 = torch.randn((N, 128, H, H), generator=gen, device=dev).to(bf).to(
+            memory_format=torch.channels_last)
+        for l, (w1, _, _, w2, _, _) in enumerate(layers):
+            c_in = C0 + 32 * l
+            x = buf[..., :c_in].reshape(-1, c_in)
+            wc = w2.reshape(3, 3, 128, 32).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            lib["bottleneck_matmul"] += device_ms(lambda: torch.matmul(x, w1))
+            lib["dy1_matmul"] += device_ms(lambda: torch.matmul(dh1, w1.t()))
+            lib["dw1_matmul"] += device_ms(lambda: torch.matmul(x.t(), dh1))
+            lib["dy2_conv2d_input"] += device_ms(
+                lambda: conv2d_input(y2.shape, wc, dy, padding=1))
+            lib["dw2_conv2d_weight"] += device_ms(
+                lambda: conv2d_weight(y2, wc.shape, dy, padding=1))
+        row = {"H": H, "layers": L, "fwd_ms": fwd_parts, "bwd_ms": bwd_parts,
+               "fwd_total_ms": sum(fwd_parts.values()),
+               "bwd_total_ms": sum(bwd_parts.values()), "library_ms": lib}
+        rows.append(row)
+        print(f"K6 split H={H} ({L} layers, {N} images): K6a "
+              f"{row['fwd_total_ms']:.4f} ms " + json.dumps(
+                  {k: round(v, 4) for k, v in fwd_parts.items()})
+              + f"; K6b {row['bwd_total_ms']:.4f} ms " + json.dumps(
+                  {k: round(v, 4) for k, v in bwd_parts.items()})
+              + "; yardsticks " + json.dumps({k: round(v, 4) for k, v in lib.items()}))
+        del buf, dbuf, layers, saved, dh1, dy, y2
+    tot = {"fwd_ms": {}, "bwd_ms": {}, "library_ms": {}}
+    for r in rows:
+        for part in tot:
+            for k, v in r[part].items():
+                tot[part][k] = tot[part].get(k, 0.0) + v
+    print("K6 split, one pass: K6a " + json.dumps(
+        {k: round(v, 4) for k, v in tot["fwd_ms"].items()}) + "; K6b " + json.dumps(
+        {k: round(v, 4) for k, v in tot["bwd_ms"].items()}) + "; yardsticks "
+          + json.dumps({k: round(v, 4) for k, v in tot["library_ms"].items()}))
+    DETAIL["K6_split"] = {"blocks": rows, "pass": tot}
+    return tot
 
 
 def phase_dense_block_train(dev):

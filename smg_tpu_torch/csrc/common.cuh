@@ -6,16 +6,18 @@
 //   - gemm_bf16_kernel: a tiled bf16 GEMM whose A operand is computed while
 //     it is staged (any prologue) and whose result goes through an epilogue
 //     functor. WMMA m16n16k16, one shared-memory stage: simple, and slow
-//     (K3, K6 and K7's transition epilogue still use it).
-//   - gemm_bnrelu_kernel: the eval bottleneck GEMM of K2 and K7, pipelined:
+//     (K3 and K7's transition epilogue still use it).
+//   - gemm_bnrelu_kernel: the bottleneck GEMM of K2, K7 and K6a, pipelined:
 //     a 3-stage cp.async ring of raw x / B tiles, the norm + ReLU applied to
-//     the A fragments in registers, mma.sync m16n8k16; 128- or 64-row
-//     tiles.
+//     the A fragments in registers (K2, K7: one affine per column) or once
+//     per staged tile (K6a: one per column and image), mma.sync m16n8k16;
+//     128- or 64-row tiles.
 //   - conv3x3_kernel: THE 3x3 / pad-1 convolution 128 -> 32 of every dense
 //     layer (K2, K5, K6a's forward, K7): a persistent grid, tap weights
 //     resident in shared memory, each tile's halo patch staged once by a
 //     double-buffered cp.async, nine shifted ldmatrix views of the patch.
-//   - gemm_atb_kernel: a split-K A^T B product for weight gradients.
+// K6b's kernels (the transposed 3x3, the weight gradients, the BN1
+// backward) are K6's alone and live in dense_layer_train.cu.
 // What bounds the two redesigned ones is stated above each.
 #pragma once
 
@@ -227,8 +229,16 @@ __device__ __forceinline__ uint32_t bn_relu2(uint32_t x, float2 a, float2 b) {
 // ---------------------------------------------------------------------------
 // Pipelined GEMM with a norm + ReLU prologue: C[M, 128] = bf16(relu(x a + b))
 // @ B, x a row-major bf16 matrix with leading dim ldx (its first K columns
-// are read), B (K, 128) bf16, a and b (K,) f32, f32 sums; the result goes
-// through `epi.store2(row, col, v0, v1)` (2 consecutive columns).
+// are read), B (K, 128) bf16, f32 sums; the result goes through
+// `epi.store2(row, col, v0, v1)` (2 consecutive columns).
+//   The affine (a, b) comes from `aff`: one per column for every row
+//   (ColumnAffine: K2, K7), applied to each A fragment in registers between
+//   ldmatrix and the MMA; or one per column and image, rows being the
+//   pixels of consecutive images (K6a's per-image BatchNorm, kInSmem):
+//   aff.stage() puts a k-slice's (a, b) for each of the tile's images
+//   (kSlots at most) into the stage, and the staged x tile is transformed
+//   once in shared memory, each row with its image's (a, b), before the
+//   MMAs (a pass and a barrier per stage, but no per-fragment row lookup).
 //   A ring of GEMMN_STAGES shared-memory stages, each holding the raw x and
 //   B tiles of one 64-deep k-slice and that slice's a and b, filled with
 //   cp.async while the tensor cores work on an earlier stage. The prologue
@@ -249,22 +259,40 @@ constexpr int GEMMN_BK = 64;
 constexpr int GEMMN_N = 128;
 constexpr int GEMMN_STAGES = 3;
 
-template <int BM>
+template <int BM, int SLOTS>
 __host__ __device__ constexpr int gemmn_stage_bytes() {
-  return BM * GEMMN_BK * 2 + GEMMN_BK * GEMMN_N * 2 + 2 * GEMMN_BK * 4;
+  return BM * GEMMN_BK * 2 + GEMMN_BK * GEMMN_N * 2 + SLOTS * 2 * GEMMN_BK * 4;
 }
 
-template <int BM>
+template <int BM, int SLOTS>
 __host__ __device__ constexpr int gemmn_smem_bytes() {
-  return GEMMN_STAGES * gemmn_stage_bytes<BM>();
+  return GEMMN_STAGES * gemmn_stage_bytes<BM, SLOTS>();
 }
 
-template <int BM, class Epilogue>
+// One (a, b) per column, the same for every row. stage() fills
+// ab[0, 64) = a[k0..] and ab[64, 128) = b[k0..] by cp.async.
+struct ColumnAffine {
+  static constexpr int kSlots = 1;
+  static constexpr bool kInSmem = false;
+  const float* a;
+  const float* b;
+  __device__ void stage(float* ab, int, int, int k0, int K, int tid, int) const {
+    if (tid < 32) {
+      const int c = tid & 15;
+      const bool ok = k0 + c * 4 < K;
+      cp_async16(smem_addr(ab + c * 4 + (tid >> 4) * GEMMN_BK),
+                 ok ? (tid < 16 ? a : b) + k0 + c * 4 : a, ok);
+    }
+  }
+  __device__ int slot(int, int) const { return 0; }
+};
+
+template <int BM, class Affine, class Epilogue>
 __global__ void __launch_bounds__(2 * BM, 512 / (2 * BM))
-gemm_bnrelu_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict__ a,
-                   const float* __restrict__ b, const bf16* __restrict__ Bm, int M, int K,
-                   Epilogue epi) {
+gemm_bnrelu_kernel(const bf16* __restrict__ x, int ldx, Affine aff,
+                   const bf16* __restrict__ Bm, int M, int K, Epilogue epi) {
   constexpr int THREADS = 2 * BM;
+  constexpr int SLOTS = Affine::kSlots;
   constexpr int A_BYTES = BM * GEMMN_BK * 2;     // rows of 128 B
   constexpr int B_BYTES = GEMMN_BK * GEMMN_N * 2;  // rows of 256 B
   extern __shared__ __align__(128) unsigned char gsm[];
@@ -276,7 +304,7 @@ gemm_bnrelu_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict_
   const int m0 = blockIdx.x * BM;
   const int KT = (K + GEMMN_BK - 1) / GEMMN_BK;
 
-  auto stage_base = [&](int s) { return gsm + s * gemmn_stage_bytes<BM>(); };
+  auto stage_base = [&](int s) { return gsm + s * gemmn_stage_bytes<BM, SLOTS>(); };
   auto load = [&](int kt, int s) {
     unsigned char* A = stage_base(s);
     unsigned char* Bs = A + A_BYTES;
@@ -296,12 +324,7 @@ gemm_bnrelu_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict_
       cp_async16(smem_addr(Bs + r * 256 + ((c ^ (r & 7)) << 4)),
                  ok ? Bm + (size_t)(k0 + r) * GEMMN_N + c * 8 : Bm, ok);
     }
-    if (tid < 32) {
-      const int c = tid & 15;
-      const bool ok = k0 + c * 4 < K;
-      cp_async16(smem_addr(ab + c * 4 + (tid >> 4) * GEMMN_BK),
-                 ok ? (tid < 16 ? a : b) + k0 + c * 4 : a, ok);
-    }
+    aff.stage(ab, m0, min(BM, M - m0), k0, K, tid, THREADS);
   };
 
   float acc[2][8][4];
@@ -318,22 +341,43 @@ gemm_bnrelu_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict_
     cp_async_commit();
   }
   const int g = lane >> 2, t = lane & 3;
+  // kInSmem: the (a, b) slot of the staged rows this thread transforms
+  // (rows tid / 8 + i THREADS / 8), once per tile.
+  int tslot[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    tslot[i] = Affine::kInSmem
+                   ? aff.slot(m0, min(m0 + (tid >> 3) + i * (THREADS >> 3), M - 1)) * 2 * GEMMN_BK
+                   : 0;
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<GEMMN_STAGES - 2>();
     __syncthreads();
     const int nk = kt + GEMMN_STAGES - 1;
     if (nk < KT) load(nk, nk % GEMMN_STAGES);
     cp_async_commit();
-    const unsigned char* A = stage_base(kt % GEMMN_STAGES);
+    unsigned char* A = stage_base(kt % GEMMN_STAGES);
     const unsigned char* Bs = A + A_BYTES;
     const float* ab = reinterpret_cast<const float*>(Bs + B_BYTES);
+    if constexpr (Affine::kInSmem) {
+      // bf16(relu(x a + b)) in place, each row with its image's (a, b); rows
+      // past M and columns past K stay zero.
+      const int k0 = kt * GEMMN_BK, c = tid & 7;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = (tid >> 3) + i * (THREADS >> 3);
+        if (m0 + r >= M || k0 + c * 8 >= K) continue;
+        uint4* v = reinterpret_cast<uint4*>(A + r * 128 + ((c ^ (r & 7)) << 4));
+        const float* sa = ab + tslot[i] + c * 8;
+        float xv[8];
+        unpack8(*v, xv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) xv[k] = bn_relu(xv[k], sa[k], sa[GEMMN_BK + k]);
+        *v = pack8(xv);
+      }
+      __syncthreads();
+    }
 #pragma unroll
     for (int kk = 0; kk < GEMMN_BK; kk += 16) {
-      // This thread's k columns: kk + 2t, +1 (a0, a1) and kk + 2t + 8, +9 (a2, a3).
-      const float2 alo = *reinterpret_cast<const float2*>(ab + kk + 2 * t);
-      const float2 ahi = *reinterpret_cast<const float2*>(ab + kk + 2 * t + 8);
-      const float2 blo = *reinterpret_cast<const float2*>(ab + GEMMN_BK + kk + 2 * t);
-      const float2 bhi = *reinterpret_cast<const float2*>(ab + GEMMN_BK + kk + 2 * t + 8);
       // All of this k-step's fragments first, then the prologue, then the
       // MMAs: one load latency per k-step.
       uint32_t af[2][4], bfr[4][4];
@@ -349,12 +393,20 @@ gemm_bnrelu_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict_
         const int c = wn * 8 + n2 * 2 + (lane >> 4);
         ldmatrix_x4_trans(smem_addr(Bs + r * 256 + ((c ^ (r & 7)) << 4)), bfr[n2]);
       }
+      if constexpr (!Affine::kInSmem) {
+        // This thread's k columns: kk + 2t, +1 (a0, a1) and kk + 2t + 8, +9
+        // (a2, a3).
+        const float2 alo = *reinterpret_cast<const float2*>(ab + kk + 2 * t);
+        const float2 ahi = *reinterpret_cast<const float2*>(ab + kk + 2 * t + 8);
+        const float2 blo = *reinterpret_cast<const float2*>(ab + GEMMN_BK + kk + 2 * t);
+        const float2 bhi = *reinterpret_cast<const float2*>(ab + GEMMN_BK + kk + 2 * t + 8);
 #pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        af[f][0] = bn_relu2(af[f][0], alo, blo);
-        af[f][1] = bn_relu2(af[f][1], alo, blo);
-        af[f][2] = bn_relu2(af[f][2], ahi, bhi);
-        af[f][3] = bn_relu2(af[f][3], ahi, bhi);
+        for (int f = 0; f < 2; ++f) {
+          af[f][0] = bn_relu2(af[f][0], alo, blo);
+          af[f][1] = bn_relu2(af[f][1], alo, blo);
+          af[f][2] = bn_relu2(af[f][2], ahi, bhi);
+          af[f][3] = bn_relu2(af[f][3], ahi, bhi);
+        }
       }
 #pragma unroll
       for (int n2 = 0; n2 < 4; ++n2)
@@ -398,27 +450,36 @@ struct Bn2Epilogue {
 };
 
 // Launch the GEMM above with BM = bm (128 or 64) on `stream`.
-template <class Epilogue>
-cudaError_t gemm_bnrelu(int bm, const bf16* x, int ldx, const float* a, const float* b,
-                        const bf16* Bm, int M, int K, Epilogue epi, cudaStream_t stream) {
+template <class Affine, class Epilogue>
+cudaError_t gemm_affine(int bm, const bf16* x, int ldx, Affine aff, const bf16* Bm, int M,
+                        int K, Epilogue epi, cudaStream_t stream) {
+  constexpr int S = Affine::kSlots;
   if (bm == 128) {
     static const cudaError_t set = cudaFuncSetAttribute(
-        gemm_bnrelu_kernel<128, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        gemmn_smem_bytes<128>());
+        gemm_bnrelu_kernel<128, Affine, Epilogue>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, gemmn_smem_bytes<128, S>());
     if (set != cudaSuccess) return set;
-    gemm_bnrelu_kernel<128, Epilogue><<<(M + 127) / 128, 256, gemmn_smem_bytes<128>(),
-                                        stream>>>(x, ldx, a, b, Bm, M, K, epi);
+    gemm_bnrelu_kernel<128, Affine, Epilogue><<<(M + 127) / 128, 256,
+                                                gemmn_smem_bytes<128, S>(), stream>>>(
+        x, ldx, aff, Bm, M, K, epi);
   } else if (bm == 64) {
     static const cudaError_t set = cudaFuncSetAttribute(
-        gemm_bnrelu_kernel<64, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        gemmn_smem_bytes<64>());
+        gemm_bnrelu_kernel<64, Affine, Epilogue>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, gemmn_smem_bytes<64, S>());
     if (set != cudaSuccess) return set;
-    gemm_bnrelu_kernel<64, Epilogue><<<(M + 63) / 64, 128, gemmn_smem_bytes<64>(), stream>>>(
-        x, ldx, a, b, Bm, M, K, epi);
+    gemm_bnrelu_kernel<64, Affine, Epilogue><<<(M + 63) / 64, 128, gemmn_smem_bytes<64, S>(),
+                                               stream>>>(x, ldx, aff, Bm, M, K, epi);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+// The GEMM with one affine per column (K2, K7): a, b (K,) f32.
+template <class Epilogue>
+cudaError_t gemm_bnrelu(int bm, const bf16* x, int ldx, const float* a, const float* b,
+                        const bf16* Bm, int M, int K, Epilogue epi, cudaStream_t stream) {
+  return gemm_affine(bm, x, ldx, ColumnAffine{a, b}, Bm, M, K, epi, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -690,105 +751,6 @@ cudaError_t conv3x3(Src src, const bf16* w2, bf16* out, int N, int H, int W, int
   conv3x3_kernel<Src, RoundTaps><<<plan.grid, C3_THREADS, plan.smem_bytes, stream>>>(
       src, w2, out, N, H, W, ld, c_off, plan);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Split-K transposed GEMM for weight gradients:
-//   part[s, m, n] = sum over pixels p of split s of A[p, m] * B[p, n]
-//   A rows from `la.load8(p, m, v8)`, B rows from `lb.load8(p, n, v8)`
-//   (8 consecutive columns, any prologue math), both rounded to bf16 when
-//   staged; f32 sums. M and N must be multiples of 32. Split s covers
-//   pixels [s * chunk, min(P, (s + 1) * chunk)). Every block writes its
-//   own partial tile (no atomics); the caller reduces over s in a fixed
-//   order, so a repeated run gives the same bits.
-//   64x64 block tiles over 32 pixels per stage, 4 warps of 32x32.
-// ---------------------------------------------------------------------------
-
-constexpr int ATB_BM = 64;
-constexpr int ATB_BN = 64;
-constexpr int ATB_BK = 32;
-constexpr int ATB_THREADS = 128;
-constexpr int ATB_LD = 64 + 8;            // bf16 elements; rows 144 B apart
-
-template <class LoaderA, class LoaderB>
-__global__ void __launch_bounds__(ATB_THREADS)
-gemm_atb_kernel(LoaderA la, LoaderB lb, int M, int N, int P, int chunk,
-                float* __restrict__ part) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[ATB_BK * ATB_LD];
-  __shared__ __align__(128) bf16 Bs[ATB_BK * ATB_LD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp & 1;    // rows wm*32 .. +32 of the 64-row tile
-  const int wn = warp >> 1;   // cols wn*32 .. +32
-  const int m0 = blockIdx.x * ATB_BM;
-  const int n0 = blockIdx.y * ATB_BN;
-  const int s = blockIdx.z;
-  const int p_begin = s * chunk;
-  const int p_end = min(P, p_begin + chunk);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int pk = p_begin; pk < p_end; pk += ATB_BK) {
-    // Each tile: 32 pixels x 64 columns = 256 chunks of 8; two per thread.
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int e = tid + it * ATB_THREADS;
-      const int r = e >> 3;
-      const int c8 = (e & 7) * 8;
-      const int p = pk + r;
-      float v[8];
-      if (p < p_end && m0 + c8 < M) {
-        la.load8(p, m0 + c8, v);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v[q] = 0.0f;
-      }
-      *reinterpret_cast<uint4*>(&As[r * ATB_LD + c8]) = pack8(v);
-      if (p < p_end && n0 + c8 < N) {
-        lb.load8(p, n0 + c8, v);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v[q] = 0.0f;
-      }
-      *reinterpret_cast<uint4*>(&Bs[r * ATB_LD + c8]) = pack8(v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < ATB_BK; kk += 16) {
-      // A^T: the (m, k) element sits at As[k * LD + m], a column-major
-      // 16x16 operand.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfg[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &As[kk * ATB_LD + wm * 32 + i * 16], ATB_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfg[j], &Bs[kk * ATB_LD + wn * 32 + j * 16], ATB_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfg[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // M and N are multiples of 32, so a warp's 32x32 tile is all in or all out.
-  if (m0 + wm * 32 < M && n0 + wn * 32 < N) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(
-            part + ((size_t)s * M + m0 + wm * 32 + i * 16) * N + n0 + wn * 32 + j * 16,
-            acc[i][j], N, wmma::mem_row_major);
-  }
 }
 
 }  // namespace smg

@@ -52,13 +52,17 @@ SIGNATURES = {
     # N, H, W, C0, L, C_out, out_ld, epilogue, taps_packed; the GEMM's tile
     # rows; the 3x3 plan; stream
     "smg_dense_block": [P] * 12 + [I] * 10 + [I] * 5 + [P],
-    # buf, w1, s1, bi1, w2, s2, bi2, h1, st1, st2; N, H, W, ld, C_in; the
-    # 3x3 plan; stream
-    "smg_dense_layer_train_fwd": [P] * 10 + [I] * 5 + [I] * 5 + [P],
-    # buf, dbuf, h1, w1t, w2t, s1, bi1, mean1, var1, s2, bi2, mean2, var2,
-    # aff1, aff2, du2, dh1, du1, sums1, sums2, part1, part2;
-    # N, H, W, ld, C_in, ldw1, split1, chunk1, split2, chunk2; stream
-    "smg_dense_layer_train_bwd": [P] * 22 + [I] * 10 + [P],
+    # buf, w1, s1, bi1, w2, s2, bi2, h1, block moments, st2, h1 sums
+    # scratch; N, H, W, ld, C_in, the moments' row stride, channels with
+    # moments already; the GEMM's tile rows; the h1 moments' splits and
+    # chunk; the 3x3 plan; stream
+    "smg_dense_layer_train_fwd": [P] * 11 + [I] * 8 + [I] * 2 + [I] * 5 + [P],
+    # buf, dbuf, h1, w1, w2, s1, bi1, mean1, var1; mean1's row stride; s2,
+    # bi2, mean2, var2, aff1, aff2, dc, du2, dh1, part_dy2, part_dy1, sums1,
+    # sums2, part_w1, part_w2, grads; N, H, W, ld, C_in; the dy2 and dw2
+    # plans (4 ints each, dense_layer_train.TilePlan.args); dw1's splits,
+    # chunk; stream
+    "smg_dense_layer_train_bwd": [P] * 9 + [I] + [P] * 16 + [I] * 5 + [I] * 8 + [I] * 2 + [P],
 }
 
 

@@ -32,11 +32,17 @@ the two agree only to bf16 tolerance. In float32 they agree to rounding.
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from smg_tpu_torch.ops import _build
-from smg_tpu_torch.ops.conv2 import conv3x3_plan
+from smg_tpu_torch.ops.conv2 import (C3_SMEM_LIMIT, C3_STAGE_COST, C3_SUBPARTITIONS,
+                                     C3_TILE_COST, H100_SMS, conv3x3_plan)
+from smg_tpu_torch.ops.dense_layer import gemm_rows
 
 fwd_launches = 0
 bwd_launches = 0
@@ -131,6 +137,119 @@ def layer_bwd_plain(buf, dbuf, c_in, h1, w1, w2, s1, bi1, s2, bi2, m1, v1, m2, v
     return (dw1, dw2, sduh1.sum(0), sdu1.sum(0), sduh2.sum(0), sdu2.sum(0))
 
 
+# The kernels' tile geometry (csrc/dense_layer_train.cu).
+SLOTS = 4                     # images a 128-pixel tile may span
+MIN_PIXELS = 43               # H W at which a 128-pixel tile spans at most SLOTS images
+DY1_ROWS = 128                # dy1_kernel's tile: 128 pixels x 128 channels
+W2_BYTES = N_TAPS * BOTTLENECK * GROWTH * 2   # the resident tap weights
+DOUT_PX_BYTES = GROWTH * 2    # a pixel of the compact bf16 dout
+DW1_STAGE_PIXELS = 64         # dw1_kernel's staged pixels
+
+
+class TilePlan(NamedTuple):
+    """Tiles of `rows` x `cols` pixels of one image, walked by a persistent
+    grid of `grid` blocks with `smem_bytes` of dynamic shared memory."""
+    rows: int
+    cols: int
+    tiles: int
+    grid: int
+    smem_bytes: int
+
+    def args(self):
+        """The ints the C entry point takes."""
+        return self.rows, self.cols, self.grid, self.smem_bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dgrad_smem(rows: int, cols: int) -> int:
+    """dy2_kernel's shared memory: the tap weights, two dout halo patches,
+    the image's a2, b2, m2, r2 and two sums per channel per 32-pixel group."""
+    patch = (rows + 2) * (cols + 2)
+    return (W2_BYTES + 2 * patch * DOUT_PX_BYTES + 4 * BOTTLENECK * 4
+            + _cdiv(rows * cols, 32) * 2 * BOTTLENECK * 4)
+
+
+def dw2_smem(rows: int, cols: int) -> int:
+    """dw2_kernel's shared memory: two buffers of (dout halo patch, the
+    tile's y2 rows, its patch-pixel table), a zero row and a2, b2."""
+    patch, m = (rows + 2) * (cols + 2), rows * cols
+    return 2 * (patch * DOUT_PX_BYTES + m * 256 + _cdiv(m * 4, 16) * 16) + 256 + 2 * BOTTLENECK * 4
+
+
+def _image_tiles(N, H, W, sms, smem, cost, fill=True):
+    """The cheapest tiling of N images of H x W into rows x cols tiles of one
+    image (the widest column band that fits each row count) whose shared
+    memory fits, by cost(rows, cols, tiles); with `fill`, among those that
+    give at least `sms` tiles when any does."""
+    cands = []
+    for rows in range(1, H + 1):
+        cols = next((c for c in range(W, 0, -1) if smem(rows, c) <= C3_SMEM_LIMIT), 0)
+        if cols == 0:
+            break
+        cols = _cdiv(W, _cdiv(W, cols))
+        cands.append((_cdiv(H, _cdiv(H, rows)), cols))
+    cands = sorted(set(cands))
+    tiles = {c: N * _cdiv(H, c[0]) * _cdiv(W, c[1]) for c in cands}
+    full = [c for c in cands if fill and tiles[c] >= sms]
+    rows, cols = min(full or cands, key=lambda c: (cost(*c, tiles[c]), tiles[c]))
+    t = tiles[(rows, cols)]
+    return rows, cols, t
+
+
+@functools.lru_cache(maxsize=None)
+def dgrad_plan(N: int, H: int, W: int, sms: int = H100_SMS) -> TilePlan:
+    """The transposed 3x3's tiles (dy2_kernel), by the 3x3's cost model
+    (ops/conv2.py) in its unit: a task of 32 pixels x 64 channels is half a
+    3x3 task, four sub-partitions per SM, a patch pixel a quarter of the
+    3x3's to stage. Memoized per shape."""
+    def cost(rows, cols, tiles):
+        tasks = 2 * _cdiv(rows * cols, 32)
+        per_tile = (0.5 * _cdiv(tasks, C3_SUBPARTITIONS) + C3_TILE_COST
+                    + C3_STAGE_COST / 4 * (rows + 2) * (cols + 2))
+        return max(1.0, tiles / sms) * per_tile
+
+    rows, cols, tiles = _image_tiles(N, H, W, sms, dgrad_smem, cost)
+    return TilePlan(rows, cols, tiles, min(tiles, sms), dgrad_smem(rows, cols))
+
+
+@functools.lru_cache(maxsize=None)
+def dw2_plan(N: int, H: int, W: int, sms: int = H100_SMS) -> TilePlan:
+    """dw2_kernel's tiles: every warp walks every pixel of a tile in steps of
+    16, so a tile costs its 16-pixel steps plus a fixed cost (a staging
+    round and three barriers, about 8 steps); rounds of `sms` tiles. Each
+    block writes a 147 KB partial, so fewer tiles than SMs are not
+    penalised (a plan that bounded the grid by the pixels per block to cut
+    the partials measured slower). Memoized per shape."""
+    def cost(rows, cols, tiles):
+        return _cdiv(tiles, sms) * (_cdiv(rows * cols, 16) + 8)
+
+    rows, cols, tiles = _image_tiles(N, H, W, sms, dw2_smem, cost, fill=False)
+    return TilePlan(rows, cols, tiles, min(tiles, sms), dw2_smem(rows, cols))
+
+
+@functools.lru_cache(maxsize=None)
+def h1_chunks(N: int, HW: int, sms: int = H100_SMS):
+    """(splits, chunk) of each image's pixels for h1's moments: about two
+    blocks per SM over the N images, chunks of at least 64 pixels."""
+    splits = max(1, min(_cdiv(HW, 64), _cdiv(2 * sms, N)))
+    chunk = _cdiv(HW, splits)
+    return _cdiv(HW, chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def dw1_split(P: int, c_in: int, sms: int = H100_SMS):
+    """(splits, chunk) of the pixel axis for dw1_kernel: about two blocks
+    per SM over the cdiv(C_in, 128) channel tiles, chunks a multiple of the
+    64-pixel stage."""
+    target = max(1, _cdiv(2 * sms, _cdiv(c_in, 128)))
+    chunk = _cdiv(P, target)
+    chunk = _cdiv(chunk, DW1_STAGE_PIXELS) * DW1_STAGE_PIXELS
+    return _cdiv(P, chunk), chunk
+
+
 def _check_layer(buf, c_in, w1, s1, bi1, w2, s2, bi2):
     ld = buf.shape[-1]
     _build.check_cuda(buf, "buf", torch.bfloat16)
@@ -142,16 +261,36 @@ def _check_layer(buf, c_in, w1, s1, bi1, w2, s2, bi2):
     _build.check_cuda(bi2, "bi2", torch.float32, (BOTTLENECK,))
     if c_in % 32 or c_in + GROWTH > ld or ld % 8 or buf.dim() != 4:
         raise ValueError(f"unsupported layer: C_in {c_in}, buffer {tuple(buf.shape)}")
+    if buf.shape[1] * buf.shape[2] < MIN_PIXELS:
+        raise ValueError(f"K6 on the card needs images of at least {MIN_PIXELS} "
+                         f"pixels, got {tuple(buf.shape[1:3])}")
+    _build.check_aligned(buf=buf, w1=w1, w2=w2)
 
 
-def layer_fwd(buf, c_in: int, w1, s1, bi1, w2, s2, bi2):
+def _check_moments(mean, var, name, n, c):
+    """(N, C) f32 moments whose rows may be a channel prefix of a wider
+    per-block buffer: returns their row stride."""
+    for t, nm in ((mean, "mean" + name), (var, "var" + name)):
+        _build.check_cuda(t, nm, torch.float32, (n, c), contiguous=False)
+        if t.stride(1) != 1 or t.stride(0) != mean.stride(0):
+            raise ValueError(f"{nm}: expected rows of unit stride, got {t.stride()}")
+    return mean.stride(0)
+
+
+def layer_fwd(buf, c_in: int, w1, s1, bi1, w2, s2, bi2, moments=None, known: int = 0):
     """K6a, in place in the block buffer buf (N, H, W, ld).
 
     w1 (C_in, 128), w2 (9, 128, 32) in buf's dtype (tap = 3 dy + dx);
     s1, bi1 (C_in,), s2, bi2 (128,) f32: norm1's and norm2's scale and bias.
     Returns h1 (N, H, W, 128) in buf's dtype and the per-image moments
     mean1, var1 (N, C_in), mean2, var2 (N, 128) f32.
-    On the card buf and the weights are bf16 and C_in is a multiple of 32.
+    `moments`: on the card, the dense block's (2, N, C_block) f32 buffer of
+    per-image means and variances, whose channels [0, known) hold the
+    prefix's already (the moments of a channel do not change once it is
+    written); the layer adds [known, C_in) and returns views of it. Without
+    it the layer computes all C_in. The CPU takes the plain version.
+    On the card buf and the weights are bf16, C_in is a multiple of 32 and
+    an image has at least MIN_PIXELS pixels.
     """
     global fwd_launches
     if buf.device.type == "cpu":
@@ -159,37 +298,55 @@ def layer_fwd(buf, c_in: int, w1, s1, bi1, w2, s2, bi2):
     _check_layer(buf, c_in, w1, s1, bi1, w2, s2, bi2)
     N, H, W, ld = buf.shape
     dev = buf.device
+    if moments is None:
+        moments, known = torch.empty((2, N, c_in), dtype=torch.float32, device=dev), 0
+    _build.check_cuda(moments, "moments", torch.float32)
+    if moments.dim() != 3 or moments.shape[:2] != (2, N) or not 0 <= known <= c_in \
+            or known % 32 or moments.shape[2] < c_in:
+        raise ValueError(f"moments: expected (2, {N}, >= {c_in}), known <= C_in a multiple "
+                         f"of 32; got {tuple(moments.shape)}, known {known}")
     h1 = torch.empty((N, H, W, BOTTLENECK), dtype=torch.bfloat16, device=dev)
-    st1 = torch.empty((4, N, c_in), dtype=torch.float32, device=dev)
     st2 = torch.empty((4, N, BOTTLENECK), dtype=torch.float32, device=dev)
-    _build.check_aligned(w2=w2)
+    sms = _build.sm_count(dev)
+    splits, chunk = h1_chunks(N, H * W, sms)
+    h1_part = torch.empty((N, splits, 2, BOTTLENECK), dtype=torch.float32, device=dev)
     _build.launch("smg_dense_layer_train_fwd", buf.data_ptr(), w1.data_ptr(),
                   s1.data_ptr(), bi1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
-                  bi2.data_ptr(), h1.data_ptr(), st1.data_ptr(), st2.data_ptr(),
-                  N, H, W, ld, c_in, *conv3x3_plan(N, H, W, _build.sm_count(dev)).args())
+                  bi2.data_ptr(), h1.data_ptr(), moments.data_ptr(), st2.data_ptr(),
+                  h1_part.data_ptr(), N, H, W, ld, c_in, moments.shape[2], known,
+                  gemm_rows(N * H * W, sms), splits, chunk,
+                  *conv3x3_plan(N, H, W, sms).args())
     fwd_launches += 1
-    return h1, st1[0], st1[1], st2[0], st2[1]
+    return h1, moments[0, :, :c_in], moments[1, :, :c_in], st2[0], st2[1]
 
 
-def _splits(P: int, m: int, n: int, sms: int):
-    """(splits, chunk) of the pixel axis for an m x n weight gradient: about
-    two waves of 64 x 64 tiles on `sms` multiprocessors, chunks a multiple
-    of 32 pixels."""
-    tiles = -(-m // 64) * -(-n // 64)
-    target = max(1, -(-2 * sms // tiles))
-    chunk = -(-max(32, -(-P // target)) // 32) * 32
-    return -(-P // chunk), chunk
+class Scratch:
+    """K6b's scratch, flat buffers reused by the layers of one dense block's
+    backward: allocated at the first (widest) layer, views after."""
+
+    def __init__(self, device):
+        self.device = device
+        self.bufs = {}
+
+    def get(self, name, shape, dtype=torch.float32):
+        n = math.prod(shape)
+        b = self.bufs.get(name)
+        if b is None or b.numel() < n:
+            b = self.bufs[name] = torch.empty(n, dtype=dtype, device=self.device)
+        return b[:n].view(shape)
 
 
-def layer_bwd(buf, dbuf, c_in: int, h1, w1, w2, s1, bi1, s2, bi2, m1, v1, m2, v2):
+def layer_bwd(buf, dbuf, c_in: int, h1, w1, w2, s1, bi1, s2, bi2, m1, v1, m2, v2,
+              scratch=None):
     """K6b: the backward of layer_fwd, accumulating into dbuf.
 
     dbuf (N, H, W, ld) f32 holds the block's cotangent: the layer reads its
     32 channels' cotangent at [c_in, c_in + 32) and adds bf16(dx) to
     [0, c_in). The other operands are layer_fwd's inputs and outputs.
+    `scratch`: a Scratch shared by the layers of one block (else made here).
     Returns (dw1 (C_in, 128), dw2 (9, 128, 32), dscale1, dbias1 (C_in,),
-    dscale2, dbias2 (128,)), all f32 and summed over the N images; the
-    weight gradients reduce in a fixed order (deterministic).
+    dscale2, dbias2 (128,)), all f32 and summed over the N images; every
+    reduction runs in a fixed order (deterministic).
     """
     global bwd_launches
     if buf.device.type == "cpu":
@@ -199,39 +356,42 @@ def layer_bwd(buf, dbuf, c_in: int, h1, w1, w2, s1, bi1, s2, bi2, m1, v1, m2, v2
     N, H, W, ld = buf.shape
     _build.check_cuda(dbuf, "dbuf", torch.float32, (N, H, W, ld))
     _build.check_cuda(h1, "h1", torch.bfloat16, (N, H, W, BOTTLENECK))
-    for t, name, c in ((m1, "mean1", c_in), (v1, "var1", c_in),
-                       (m2, "mean2", BOTTLENECK), (v2, "var2", BOTTLENECK)):
-        _build.check_cuda(t, name, torch.float32, (N, c))
+    ldm1 = _check_moments(m1, v1, "1", N, c_in)
+    _check_moments(m2, v2, "2", N, BOTTLENECK)
+    if m2.stride(0) != BOTTLENECK:
+        raise ValueError("mean2, var2: expected contiguous (N, 128) rows")
     dev, P = buf.device, N * H * W
-    f32 = dict(dtype=torch.float32, device=dev)
-    ldw1 = -(-c_in // 128) * 128
-    w1t = torch.zeros((BOTTLENECK, ldw1), dtype=torch.bfloat16, device=dev)
-    w1t[:, :c_in] = w1.t()
-    w2t = w2.permute(0, 2, 1).reshape(N_TAPS * GROWTH, BOTTLENECK).contiguous()
-    aff1 = torch.empty((2, N, c_in), **f32)
-    aff2 = torch.empty((2, N, BOTTLENECK), **f32)
-    du2 = torch.empty((P, BOTTLENECK), **f32)
-    dh1 = torch.empty((P, BOTTLENECK), dtype=torch.bfloat16, device=dev)
-    du1 = torch.empty((P, c_in), **f32)
-    sums1 = torch.empty((2, N, c_in), **f32)
-    sums2 = torch.empty((2, N, BOTTLENECK), **f32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    split1, chunk1 = _splits(P, c_in, BOTTLENECK, sms)
-    split2, chunk2 = _splits(P, BOTTLENECK, N_TAPS * GROWTH, sms)
-    part1 = torch.empty((split1, c_in, BOTTLENECK), **f32)
-    part2 = torch.empty((split2, BOTTLENECK, N_TAPS * GROWTH), **f32)
+    sms = _build.sm_count(dev)
+    dg, dw = dgrad_plan(N, H, W, sms), dw2_plan(N, H, W, sms)
+    splits, chunk = dw1_split(P, c_in, sms)
+    sc = scratch if scratch is not None else Scratch(dev)
+    bf = torch.bfloat16
+    aff1 = sc.get("aff1", (3, N, c_in))
+    aff2 = sc.get("aff2", (3, N, BOTTLENECK))
+    dc = sc.get("dc", (P, GROWTH), bf)
+    du2 = sc.get("du2", (P, BOTTLENECK))
+    dh1 = sc.get("dh1", (P, BOTTLENECK), bf)
+    part_dy2 = sc.get("part_dy2", (dg.tiles, 2, BOTTLENECK))
+    part_dy1 = sc.get("part_dy1", (_cdiv(P, DY1_ROWS), SLOTS, 2, c_in))
+    sums1 = sc.get("sums1", (2, N, c_in))
+    sums2 = sc.get("sums2", (2, N, BOTTLENECK))
+    part_w1 = sc.get("part_w1", (splits, c_in, BOTTLENECK))
+    part_w2 = sc.get("part_w2", (dw.grid, N_TAPS, BOTTLENECK, GROWTH))
+    n1, n2 = c_in * BOTTLENECK, N_TAPS * BOTTLENECK * GROWTH
+    grads = torch.empty(n1 + n2 + 2 * c_in + 2 * BOTTLENECK, dtype=torch.float32, device=dev)
     _build.launch("smg_dense_layer_train_bwd", buf.data_ptr(), dbuf.data_ptr(),
-                  h1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), s1.data_ptr(),
-                  bi1.data_ptr(), m1.data_ptr(), v1.data_ptr(), s2.data_ptr(),
+                  h1.data_ptr(), w1.data_ptr(), w2.data_ptr(), s1.data_ptr(),
+                  bi1.data_ptr(), m1.data_ptr(), v1.data_ptr(), ldm1, s2.data_ptr(),
                   bi2.data_ptr(), m2.data_ptr(), v2.data_ptr(), aff1.data_ptr(),
-                  aff2.data_ptr(), du2.data_ptr(), dh1.data_ptr(), du1.data_ptr(),
-                  sums1.data_ptr(), sums2.data_ptr(), part1.data_ptr(),
-                  part2.data_ptr(), N, H, W, ld, c_in, ldw1, split1, chunk1,
-                  split2, chunk2)
+                  aff2.data_ptr(), dc.data_ptr(), du2.data_ptr(), dh1.data_ptr(),
+                  part_dy2.data_ptr(), part_dy1.data_ptr(), sums1.data_ptr(),
+                  sums2.data_ptr(), part_w1.data_ptr(), part_w2.data_ptr(),
+                  grads.data_ptr(), N, H, W, ld, c_in, *dg.args(), *dw.args(), splits,
+                  chunk)
     bwd_launches += 1
-    dw2 = part2.sum(0).reshape(BOTTLENECK, N_TAPS, GROWTH).permute(1, 0, 2)
-    return (part1.sum(0), dw2.contiguous(), sums1[1].sum(0), sums1[0].sum(0),
-            sums2[1].sum(0), sums2[0].sum(0))
+    dw1, dw2, bn1, bn2 = grads.split((n1, n2, 2 * c_in, 2 * BOTTLENECK))
+    return (dw1.view(c_in, BOTTLENECK), dw2.view(N_TAPS, BOTTLENECK, GROWTH),
+            bn1[:c_in], bn1[c_in:], bn2[:BOTTLENECK], bn2[BOTTLENECK:])
 
 
 class _DenseBlockTrain(torch.autograd.Function):
@@ -244,11 +404,16 @@ class _DenseBlockTrain(torch.autograd.Function):
         dt = x0.dtype
         buf = torch.empty((N, H, W, C0 + GROWTH * L), dtype=dt, device=x0.device)
         buf[..., :C0] = x0
+        # The block's per-image moments: each channel's once, when written.
+        block_moments = torch.empty((2, N, C0 + GROWTH * (L - 1)), dtype=torch.float32,
+                                    device=x0.device)
         saved, moments = [], []
         for l in range(L):
             w1f, s1, bi1, w2f, s2, bi2 = flat[6 * l:6 * l + 6]
-            out = layer_fwd(buf, C0 + GROWTH * l, w1f.to(dt).contiguous(), s1,
-                            bi1, w2f.to(dt).contiguous(), s2, bi2)
+            c_in = C0 + GROWTH * l
+            out = layer_fwd(buf, c_in, w1f.to(dt).contiguous(), s1,
+                            bi1, w2f.to(dt).contiguous(), s2, bi2,
+                            moments=block_moments, known=c_in - GROWTH if l else 0)
             saved += out
             moments += out[1:]
         ctx.save_for_backward(buf, *flat, *saved)
@@ -265,12 +430,14 @@ class _DenseBlockTrain(torch.autograd.Function):
         dbuf = torch.empty(buf.shape, dtype=torch.float32, device=buf.device)
         dbuf.copy_(dout)
         grads = [None] * (6 * L)
+        scratch = Scratch(buf.device)
         for l in reversed(range(L)):
             w1f, s1, bi1, w2f, s2, bi2 = flat[6 * l:6 * l + 6]
             h1, m1, v1, m2, v2 = saved[5 * l:5 * l + 5]
             dw1, dw2, ds1, db1, ds2, db2 = layer_bwd(
                 buf, dbuf, C0 + GROWTH * l, h1, w1f.to(dt).contiguous(),
-                w2f.to(dt).contiguous(), s1, bi1, s2, bi2, m1, v1, m2, v2)
+                w2f.to(dt).contiguous(), s1, bi1, s2, bi2, m1, v1, m2, v2,
+                scratch=scratch)
             grads[6 * l:6 * l + 6] = [dw1, ds1, db1, dw2, ds2, db2]
         return (dbuf[..., :C0].to(dt), *grads)
 

@@ -298,9 +298,7 @@ def _k6_operands(dev, g, c_in):
             torch.rand(128, generator=g, device=dev) * 0.6 - 0.2)
 
 
-@pytest.mark.parametrize("H,C_in,n", [(7, 64, 1), (7, 224, 5), (14, 64, 5),
-                                      (14, 224, 1)])
-def test_dense_layer_train(dev, H, C_in, n):
+def _check_dense_layer_train(dev, H, C_in, n):
     """K6a and K6b against their plain versions; K6b twice gives the same bits."""
     from smg_tpu_torch.ops import dense_layer_train as k6
 
@@ -319,6 +317,9 @@ def test_dense_layer_train(dev, H, C_in, n):
     assert _rel(h1, rh1) <= TOL_BF16
     for got, want in zip(moms, rmoms):
         assert got.shape == (n, want.shape[-1])
+    # norm1's moments against the plain version's; norm2's against those of
+    # the kernel's own h1 (h1 itself is held to TOL_BF16 above).
+    for got, want in zip(moms, (*rmoms[:2], *k6._moments(h1.float()))):
         assert _rel(got, want) <= 1e-4
 
     dbuf = torch.randn((n, H, H, ld), generator=g, device=dev)
@@ -338,6 +339,69 @@ def test_dense_layer_train(dev, H, C_in, n):
     for got, w in zip(grads, want):
         assert got.shape == w.shape
         assert _rel_l2(got, w) < 1e-2
+    return moms, rmoms
+
+
+@pytest.mark.parametrize("H,C_in,n", [(7, 64, 1), (7, 224, 5), (14, 64, 5),
+                                      (14, 224, 1)])
+def test_dense_layer_train(dev, H, C_in, n):
+    """K6a and K6b against their plain versions; K6b twice gives the same bits."""
+    moms, rmoms = _check_dense_layer_train(dev, H, C_in, n)
+    for got, want in zip(moms, rmoms):
+        assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("C_in", [64, 96, 992])
+def test_dense_layer_train_tile_edges(dev, C_in):
+    """At 5 images of 7 x 7, 128-pixel tiles span up to four images and
+    straddle image edges; C_in 96 and 992 leave a part-filled 128-channel
+    tile (dw1, dy1)."""
+    _check_dense_layer_train(dev, 7, C_in, 5)
+
+
+@pytest.mark.parametrize("n", [1, 5, 64])
+@pytest.mark.parametrize("H", [7, 14, 56])
+def test_dense_layer_train_bwd_repeatable(dev, H, n):
+    """K6b twice on the same operands gives the same bits: dx, dw1, dw2 and
+    the BN gradients (fixed-order partials, no float atomics)."""
+    from smg_tpu_torch.ops import dense_layer_train as k6
+
+    C_in = 96
+    g = _gen(dev, 7 * H + n)
+    buf = torch.randn((n, H, H, C_in + 32), generator=g, device=dev).to(torch.bfloat16)
+    ops = _k6_operands(dev, g, C_in)
+    w1, s1, b1, w2, s2, b2 = ops
+    h1, *moms = k6.layer_fwd(buf, C_in, *ops)
+    dbuf = torch.randn(buf.shape, generator=g, device=dev)
+    runs = []
+    for _ in range(2):
+        d = dbuf.clone()
+        grads = k6.layer_bwd(buf, d, C_in, h1, w1, w2, s1, b1, s2, b2, *moms)
+        torch.cuda.synchronize()
+        runs.append((d, grads))
+    (d, grads), (d2, grads2) = runs
+    assert torch.equal(d, d2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert all(bool(torch.isfinite(t).all()) for t in (d, *grads))
+
+
+def test_block_moments_keep_their_bits(dev):
+    """K6a through a whole dense block, each channel's moments computed
+    once into the block's buffer, gives the same mean1 and var1 bits as the
+    per-layer recompute of the whole prefix (the parent design)."""
+    from smg_tpu_torch.ops import dense_layer_train as k6
+
+    g = _gen(dev, 11)
+    N, H, C0, L = 5, 7, 64, 4
+    x0 = torch.randn((N, H, H, C0), generator=g, device=dev).to(torch.bfloat16)
+    layers = [tuple(t.float() for t in _k6_operands(dev, g, C0 + 32 * l)) for l in range(L)]
+    buf, moments = k6.dense_block_train(x0, layers)
+    for l, (w1, s1, b1, w2, s2, b2) in enumerate(layers):
+        c_in = C0 + 32 * l
+        ref = buf.clone()
+        _, m1, v1, _, _ = k6.layer_fwd(ref, c_in, w1.to(torch.bfloat16), s1, b1,
+                                       w2.to(torch.bfloat16), s2, b2)
+        assert torch.equal(moments[l][0], m1) and torch.equal(moments[l][1], v1)
 
 
 def test_wrappers_reject_bad_operands(dev):
@@ -353,4 +417,7 @@ def test_wrappers_reject_bad_operands(dev):
         k6.layer_fwd(torch.zeros((1, 7, 7, 128), device=dev), 64, *ops)
     with pytest.raises(ValueError):                   # no room for the 32 channels
         k6.layer_fwd(torch.zeros((1, 7, 7, 64), device=dev, dtype=torch.bfloat16),
+                     64, *ops)
+    with pytest.raises(ValueError):                   # a tile would span 5+ images
+        k6.layer_fwd(torch.zeros((1, 6, 6, 96), device=dev, dtype=torch.bfloat16),
                      64, *ops)

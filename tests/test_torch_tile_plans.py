@@ -1,14 +1,18 @@
 """The CUDA kernels' tile plans, which the wrappers compute in Python and
-pass to the kernels as ints: K1's (ops/contact.py::contact_plan) and the
-shared 3x3's (ops/conv2.py::conv3x3_plan, used by K2, K5, K6a and K7), plus
-K2's GEMM tile rows. Checked on the CPU at every shape the port's paths and
-its card tests give them. No JAX.
+pass to the kernels as ints: K1's (ops/contact.py::contact_plan), the
+shared 3x3's (ops/conv2.py::conv3x3_plan, used by K2, K5, K6a and K7), K2's
+GEMM tile rows, and K6b's (ops/dense_layer_train.py: dgrad_plan, dw2_plan,
+dw1_split, and the 128-pixel tiles of dy1 and K6a's GEMM with their image
+slots). Checked on the CPU at every shape the port's paths and its card
+tests give them. No JAX.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from smg_tpu_torch.ops import contact, conv2, dense_layer
+from smg_tpu_torch.ops import dense_layer_train as k6
 
 SMS = conv2.H100_SMS
 SMEM_227KB = 232448
@@ -126,6 +130,10 @@ def test_gemm_rows():
     (conv2.conv3x3_plan, (104, 56, 56, SMS)),
     (contact.contact_plan, (108, 145, 32)),
     (dense_layer.gemm_rows, (104 * 7 * 7, SMS)),
+    (k6.dgrad_plan, (64, 56, 56, SMS)),
+    (k6.dw2_plan, (64, 7, 7, SMS)),
+    (k6.dw1_split, (64 * 14 * 14, 512, SMS)),
+    (k6.h1_chunks, (64, 56 * 56, SMS)),
 ])
 def test_plans_are_memoized(plan, args):
     """A wrapper asks for its plan on every launch: the search runs once
@@ -134,3 +142,104 @@ def test_plans_are_memoized(plan, args):
     hits = plan.cache_info().hits
     assert plan(*args) == first
     assert plan.cache_info().hits == hits + 1
+
+
+# K6 on the training path: one 64-image style group of the b32 update at
+# 224, the 58 layers' (N, H, W) and C_in; and tests/test_torch_gpu.py's K6
+# shapes (N, H, C_in).
+K6_PATH = [(64, H, H, C0 + 32 * l) for H, C0, L in ((56, 64, 6), (28, 128, 12),
+                                                   (14, 256, 24), (7, 512, 16))
+           for l in range(L)]
+K6_CARD = [(n, H, H, c) for n, H, c in (
+    (1, 7, 64), (5, 7, 224), (5, 14, 64), (1, 14, 224),          # test_dense_layer_train
+    (5, 7, 64), (5, 7, 96), (5, 7, 992),                          # the tile edges
+    (1, 7, 96), (64, 7, 96), (1, 14, 96), (64, 14, 96), (1, 56, 96), (5, 56, 96),
+    (64, 56, 96), (5, 14, 96))]                                   # repeatability
+K6_SHAPES = K6_PATH + K6_CARD
+K6_IMAGES = sorted({s[:3] for s in K6_SHAPES})
+
+
+def _image_tile_cover(plan, N, H, W):
+    """Decode the tiles as dy2_kernel / dw2_kernel do (TileGeom): tile ->
+    image, row and column origin; count how often each pixel is covered."""
+    tx, ty = -(-W // plan.cols), -(-H // plan.rows)
+    cover = np.zeros((N, H, W), np.int32)
+    for t in range(plan.tiles):
+        n, r = divmod(t, tx * ty)
+        y0, x0 = r // tx * plan.rows, r % tx * plan.cols
+        th, tw = min(plan.rows, H - y0), min(plan.cols, W - x0)
+        assert n < N and th > 0 and tw > 0
+        cover[n, y0:y0 + th, x0:x0 + tw] += 1
+    return cover
+
+
+@pytest.mark.parametrize("plan_fn, smem_fn", [(k6.dgrad_plan, k6.dgrad_smem),
+                                              (k6.dw2_plan, k6.dw2_smem)],
+                         ids=["dgrad", "dw2"])
+@pytest.mark.parametrize("shape", K6_IMAGES, ids=lambda s: "x".join(map(str, s)))
+def test_k6b_image_tiles(plan_fn, smem_fn, shape):
+    """dy2's and dw2's tiles lie within one image and cover every pixel
+    once; the persistent grid takes every tile once; shared memory fits."""
+    N, H, W = shape
+    plan = plan_fn(N, H, W, SMS)
+    assert plan.tiles == N * -(-H // plan.rows) * -(-W // plan.cols)
+    assert (_image_tile_cover(plan, N, H, W) == 1).all()
+    taken = sorted(t for b in range(plan.grid) for t in range(b, plan.tiles, plan.grid))
+    assert taken == list(range(plan.tiles))
+    assert plan.grid == min(plan.tiles, SMS)
+    assert plan.smem_bytes == smem_fn(plan.rows, plan.cols) <= SMEM_227KB
+    if plan_fn is k6.dgrad_plan and N * H >= SMS:
+        assert plan.tiles >= SMS                  # the card is filled on the path
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k6_pixel_tiles(shape):
+    """h1's moment chunks and dw1's splits cover every pixel once (dw1's
+    in 64-pixel stages); a 128-pixel
+    tile of dy1 and of K6a's GEMM (its tile rows) spans at most SLOTS
+    images; the reduction of dy1's partials reads, for each image, exactly
+    the (tile, slot) pairs the tiles write."""
+    N, H, W, C = shape
+    HW, P = H * W, N * H * W
+    assert HW >= k6.MIN_PIXELS
+    h1_splits, h1_chunk = k6.h1_chunks(N, HW, SMS)
+    assert (h1_splits - 1) * h1_chunk < HW <= h1_splits * h1_chunk
+    splits, chunk = k6.dw1_split(P, C, SMS)
+    assert chunk % k6.DW1_STAGE_PIXELS == 0 and (splits - 1) * chunk < P <= splits * chunk
+    if P >= 2 * SMS * k6.DW1_STAGE_PIXELS:
+        assert -(-C // 128) * splits >= SMS
+    for bm in (dense_layer.gemm_rows(P, SMS), k6.DY1_ROWS):
+        for m0 in range(0, P, bm):
+            rows = min(bm, P - m0)
+            assert (m0 + rows - 1) // HW - m0 // HW < k6.SLOTS
+    tiles = -(-P // k6.DY1_ROWS)
+    written = {(t, n - t * k6.DY1_ROWS // HW)
+               for t in range(tiles)
+               for n in range(t * k6.DY1_ROWS // HW,
+                              (min(P, (t + 1) * k6.DY1_ROWS) - 1) // HW + 1)}
+    read = {(t, n - t * k6.DY1_ROWS // HW) for n in range(N)
+            for t in range(n * HW // k6.DY1_ROWS, ((n + 1) * HW - 1) // k6.DY1_ROWS + 1)}
+    assert read == written
+    assert all(0 <= j < k6.SLOTS for _, j in written)
+    part = (tiles, k6.SLOTS, 2, C)
+    assert np.prod(part) < 2 ** 31
+
+
+def test_block_moments_keep_their_bits():
+    """K6a's moments once per channel per block, when the channel is
+    written, equal a per-layer recompute of the whole prefix bit for bit:
+    the moments of a channel depend on that channel alone (plain torch, the
+    port's _moments, f32 sums of bf16 values)."""
+    rng = np.random.RandomState(0)
+    N, H, C0, L = 3, 7, 64, 4
+    buf = torch.tensor(rng.randn(N, H, H, C0 + 32 * L).astype(np.float32)).to(torch.bfloat16)
+    block = [k6._moments(buf[..., :C0].float())]
+    for l in range(1, L):
+        c = C0 + 32 * l
+        block.append(k6._moments(buf[..., c - 32:c].float()))
+    for l in range(L):
+        c = C0 + 32 * l
+        m, v = k6._moments(buf[..., :c].float())
+        bm = torch.cat([b[0] for b in block[:l + 1]], dim=1)
+        bv = torch.cat([b[1] for b in block[:l + 1]], dim=1)
+        assert torch.equal(m, bm) and torch.equal(v, bv)
