@@ -11,19 +11,23 @@
    200), K2 at every (H, C_in) of DenseNet-121 at 224 and at 640 with
    104 images (with its 224 time per dense block split into its two
    launches by the profiler, beside the parts' cuBLAS and cuDNN
-   yardsticks), K3 at its three shapes,
-   K4 at the stem, K5 (the `xla_pk` conv2) at every (H, C_in) at 224 and
+   yardsticks), K3 at its three transitions at 224 and at 640 with 104
+   images (each beside its own bound and torch.matmul of the pooled
+   tensor), K4 at the stem, K5 (the `xla_pk` conv2) at every (H, C_in) at 224 and
    at 640 with 104 images, K6a/K6b (the train-mode dense layer, forward and
-   backward) at every (H, C_in) with 64 images (with their time per dense
+   backward) at every (H, C_in) at 224 and 640 and at a 6 x 6 block 4 with
+   64 images (with their 224 time per dense
    block split by launch name by the profiler, beside the parts' torch.matmul
    and torch.nn.grad.conv2d_* yardsticks), K7 (the `pallas` dense
    block) on the four blocks at 224 and at 640 with 104 images, both
-   epilogues, taps_packed True and False — with each kernel's and plain
+   epilogues, taps_packed True and False (its time split by launch name,
+   the epilogue on its own line) — with each kernel's and plain
    version's time and the least time the card could take for the same
    work (bound_ms, from the shapes): a kernel's time is its device time,
    its calls replayed from a CUDA graph (device_ms), a plain version's its
-   eager time by CUDA events; and K6
-   composed over each whole dense block against its plain walk.
+   eager time by CUDA events; K6
+   composed over each whole dense block against its plain walk; and K3
+   and K6 at the largest batch their wrappers take (32-bit indices).
 4. The act path: make_prod_trainer(32) + make_prod_loop_cfg(32) with
    is_testing=True, init_loop with the seeded He init, then act steps,
    with per-phase times, the success rate and each kernel's launch count;
@@ -435,41 +439,162 @@ def dense_layer_split(dev):
     return tot
 
 
+def transitions(size: int):
+    """(H, C) of DenseNet-121's three transitions at input `size` (C -> C/2)."""
+    return [(H, C0 + 32 * L) for H, C0, L in densenet_blocks(size)[:3]]
+
+
+def _transition_work(N, H, C):
+    """(flops, bytes) of one transition: the 1x1's products on the pooled
+    pixels; the input read once, the output written once, the weight and
+    the folded BN read once."""
+    P, Q, C_out = N * H * H, N * H * H / 4, C / 2
+    return (2.0 * Q * C * C_out,
+            2.0 * P * C + 2.0 * Q * C_out + 2.0 * C * C_out + 8.0 * C)
+
+
 def phase_transition(dev):
+    """K3 at the three transitions of DenseNet-121 at 224 and at 640 with
+    104 images (one trunk pass at each size), each against its plain
+    version and timed beside its own bound; beside them the parts'
+    yardstick, torch.matmul of the pooled bf16 tensor (the pool is
+    elementwise) by wt. The table's times are the 224 pass's."""
     from smg_tpu_torch.ops import transition as k3
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    worst, tot_ms, tot_plain, rows = 0.0, 0.0, 0.0, []
-    for HW, C in ((56, 256), (28, 512), (14, 1024)):
-        x = torch.randn((STREAMS, HW, HW, C), generator=gen, device=dev).to(torch.bfloat16)
-        a, b = _bn(gen, C, dev)
-        wt = (torch.randn((C, C // 2), generator=gen, device=dev)
-              * C ** -0.5).to(torch.bfloat16)
-        got = k3.transition(x, a, b, wt)
-        want = k3.transition_plain(x, a, b, wt)
-        err = rel_err(got, want)
-        check(err <= TOL_BF16, f"K3 {HW}x{HW}x{C}: rel err {err:.5f}")
-        err_abs = float((got.float() - want.float()).abs().max())
-        k_ms = device_ms(lambda: k3.transition(x, a, b, wt))
-        p_ms = cuda_ms(lambda: k3.transition_plain(x, a, b, wt), reps=5)
-        worst = max(worst, err_abs)
-        tot_ms += k_ms
-        tot_plain += p_ms
-        rows.append({"H": HW, "C": C, "rel_err": err, "max_abs_err": err_abs,
-                     "ms": k_ms, "plain_ms": p_ms})
-        print(f"K3 transition {HW}x{HW}x{C}: rel err {err:.5f} (bound "
-              f"{TOL_BF16:.5f}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    worst, rows = 0.0, []
+    tot = {S: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, matmul_ms=0.0, flops=0.0, bytes=0.0)
+           for S in SIZES}
+    for S in SIZES:
+        for HW, C in transitions(S):
+            x = torch.randn((STREAMS, HW, HW, C), generator=gen, device=dev).to(torch.bfloat16)
+            a, b = _bn(gen, C, dev)
+            wt = (torch.randn((C, C // 2), generator=gen, device=dev)
+                  * C ** -0.5).to(torch.bfloat16)
+            got = k3.transition(x, a, b, wt)
+            want = k3.transition_plain(x, a, b, wt)
+            err = rel_err(got, want)
+            check(err <= TOL_BF16, f"K3 {S} {HW}x{HW}x{C}: rel err {err:.5f}")
+            err_abs = float((got.float() - want.float()).abs().max())
+            del want
+            pooled = (torch.relu(x.float() * a + b).reshape(STREAMS, HW // 2, 2, HW // 2, 2, C)
+                      .mean(dim=(2, 4)).to(torch.bfloat16).reshape(-1, C))
+            flops, nbytes = _transition_work(STREAMS, HW, C)
+            bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+            row = {"input": S, "H": HW, "C": C, "rel_err": err, "max_abs_err": err_abs,
+                   "ms": device_ms(lambda: k3.transition(x, a, b, wt, out=got)),
+                   "matmul_ms": device_ms(lambda: torch.matmul(pooled, wt)),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            if hasattr(k3, "transition_plan"):   # (compare_parent.py runs older packages too)
+                row["plan"] = list(k3.transition_plan(STREAMS * HW * HW // 4, C, C // 2))
+            row["roofline_share"] = bound_ms / row["ms"]
+            if S == 224:
+                row["plain_ms"] = cuda_ms(lambda: k3.transition_plain(x, a, b, wt), reps=5)
+                tot[S]["plain_ms"] += row["plain_ms"]
+            for k in ("ms", "bound_ms", "matmul_ms"):
+                tot[S][k] += row[k]
+            tot[S]["flops"] += flops
+            tot[S]["bytes"] += nbytes
+            worst = max(worst, err_abs)
+            rows.append(row)
+            print(f"K3 transition {S}: {HW}x{HW}x{C} -> {C // 2} ({STREAMS} images): rel err "
+                  f"{err:.5f} (bound {TOL_BF16:.5f}); kernel {row['ms']:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; {row['roofline_share']:.1%} of it), "
+                  f"torch.matmul of the pooled tensor {row['matmul_ms']:.4f} ms"
+                  + (f", plain {row['plain_ms']:.4f} ms" if S == 224 else ""))
+            del x, got, pooled
     DETAIL["K3"] = rows
-    flops = nbytes = 0.0
-    for HW, C in ((56, 256), (28, 512), (14, 1024)):
-        P = STREAMS * HW * HW
-        flops += 2.0 * (P / 4) * C * (C / 2)
-        nbytes += 2.0 * P * C + 2.0 * (P / 4) * (C / 2) + 2.0 * C * (C / 2) + 8.0 * C
+    DETAIL["K3_pass"] = tot
+    for S in SIZES:
+        print(f"K3 one trunk pass at {S} (3 transitions, {STREAMS} images): kernel "
+              f"{tot[S]['ms']:.4f} ms, bound {tot[S]['bound_ms']:.4f} ms, torch.matmul of "
+              f"the pooled tensors {tot[S]['matmul_ms']:.4f} ms")
+    t = tot[224]
     return with_bound({"name": "K3 transition", "route": "cuda",
                        "source": "smg_tpu_torch/csrc/transition.cu",
                        "replaces": "smg_tpu/ops/transition_pallas.py:110",
-                       "max_abs_err": worst, "ms": tot_ms, "plain_ms": tot_plain,
-                       "library_ms": None}, flops, nbytes, PEAK_BF16)
+                       "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                       "library_ms": None, "matmul_ms": t["matmul_ms"],
+                       "ms_640": tot[640]["ms"], "bound_ms_640": tot[640]["bound_ms"]},
+                      t["flops"], t["bytes"], PEAK_BF16)
+
+
+def phase_index_limits(dev):
+    """K3 and K6 at the largest batch their wrappers accept (the kernels
+    index elements with 32-bit ints; the wrappers refuse 2^31 elements):
+    K3 at the 224 pass's third transition (14 x 14 x 1024), K6a/K6b at
+    block 4's last layer (7 x 7, 1024 channels); the images at both ends
+    of the batch against the plain version on those images alone (the
+    BatchNorm statistics are per image), and one image more refused."""
+    from smg_tpu_torch.ops import dense_layer_train as k6
+    from smg_tpu_torch.ops import transition as k3
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf, ends = torch.bfloat16, (slice(0, 1), slice(-2, None))
+    H, C = 14, 1024
+    n = (2 ** 31 - 1) // (H * H * C)
+    x = torch.zeros((n, H, H, C), dtype=bf, device=dev)
+    for e in ends:
+        x[e] = torch.randn(x[e].shape, generator=gen, device=dev).to(bf)
+    a, b = _bn(gen, C, dev)
+    wt = (torch.randn((C, C // 2), generator=gen, device=dev) * C ** -0.5).to(bf)
+    out = k3.transition(x, a, b, wt)
+    errs = [rel_err(out[e], k3.transition_plain(x[e], a, b, wt)) for e in ends]
+    check(max(errs) <= TOL_BF16, f"K3 at {n} images: rel err {errs}")
+    del x, out
+    big = torch.empty((n + 1, H, H, C), dtype=bf, device=dev)
+    try:
+        k3.transition(big, a, b, wt)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"K3 took {n + 1} images of {H}x{H}x{C}")
+    del big
+    print(f"K3 at the largest batch it takes, {n} images of {H}x{H}x{C} "
+          f"({n * H * H * C} elements): ends' rel err {max(errs):.5f}; {n + 1} refused")
+    DETAIL["K3_limit"] = {"images": n, "rel_err": max(errs)}
+
+    H, C0, L = DENSENET_BLOCKS[3]
+    c_in, ld = C0 + 32 * (L - 1), C0 + 32 * L
+    n = (2 ** 31 - 1) // (H * H * ld)
+    buf = torch.zeros((n, H, H, ld), dtype=bf, device=dev)
+    for e in ends:
+        buf[e] = torch.randn(buf[e].shape, generator=gen, device=dev).to(bf)
+    ops = _k6_layer(gen, dev, c_in)
+    w1, s1, b1, w2, s2, b2 = ops
+    h1, m1, v1, m2, v2 = k6.layer_fwd(buf, c_in, *ops)
+    dbuf = torch.zeros((n, H, H, ld), device=dev)
+    for e in ends:
+        dbuf[e] = torch.randn(dbuf[e].shape, generator=gen, device=dev)
+    d_k = dbuf.clone()
+    k6.layer_bwd(buf, d_k, c_in, h1, w1, w2, s1, b1, s2, b2, m1, v1, m2, v2)
+    errs = []
+    for e in ends:
+        ref = buf[e].clone()
+        ref[..., c_in:] = 0
+        rh1, *rm = k6.layer_fwd_plain(ref, c_in, *ops)
+        errs += [rel_err(buf[e][..., c_in:], ref[..., c_in:]), rel_err(h1[e], rh1)]
+        d_p = dbuf[e].clone()
+        k6.layer_bwd_plain(buf[e], d_p, c_in, h1[e], w1, w2, s1, b1, s2, b2,
+                           m1[e], v1[e], m2[e], v2[e])
+        dx_k, dx_p = d_k[e][..., :c_in] - dbuf[e][..., :c_in], d_p[..., :c_in] - dbuf[e][..., :c_in]
+        errs.append(float((dx_k - dx_p).norm() / dx_p.norm().clamp(min=1e-12)))
+    check(max(errs[0::3] + errs[1::3]) <= TOL_BF16 and max(errs[2::3]) < TOL_GRAD,
+          f"K6 at {n} images: rel errs (out, h1, dx) {errs}")
+    del buf, dbuf, d_k, h1
+    big = torch.empty((n + 1, H, H, ld), dtype=bf, device=dev)
+    try:
+        k6.layer_fwd(big, c_in, *ops)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"K6 took {n + 1} images of {H}x{H}x{ld}")
+    del big
+    torch.cuda.empty_cache()
+    print(f"K6 at the largest batch it takes, {n} images of {H}x{H}x{ld}: ends' rel err "
+          f"out / h1 {max(errs[0::3] + errs[1::3]):.5f} (bound {TOL_BF16:.5f}), dx rel L2 "
+          f"{max(errs[2::3]):.5f} (bound {TOL_GRAD}); {n + 1} refused")
+    DETAIL["K6_limit"] = {"images": n, "rel_errs": errs}
 
 
 def phase_stem(dev):
@@ -593,17 +718,27 @@ def _block_work(N, H, C0, L, epilogue):
     return flops, 2.0 * P * C0 + 2.0 * out + weights
 
 
+# K7's launches by kernel name: its epilogue on a line of its own.
+K7_PARTS = (("gemm_bnrelu", "bottleneck GEMM"), ("conv3x3", "3x3"),
+            ("transition", "transition epilogue"), ("final_bn", "norm5 epilogue"),
+            ("gemm_bf16", "transition epilogue"))   # older commits: the WMMA GEMM
+
+
 def phase_dense_block(dev):
     """K7 on the four dense blocks of DenseNet-121 at 224 and at 640 with
     104 images (blocks 1-3 with the transition epilogue, block 4 with
     norm5), with taps_packed True (the trunk's) and False: the epilogue
     output and the appended channels against the plain version. The
-    table's times are the 224 pass's; at 640 the kernel alone is timed."""
+    table's times are the 224 pass's; at 640 the kernel alone is timed.
+    Each timed block's device time is also split by launch name
+    (torch.profiler over 2 calls): the bottleneck GEMMs, the 3x3s and the
+    epilogue."""
     from smg_tpu_torch.ops import dense_block as k7
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     bf, N = torch.bfloat16, STREAMS
     worst, tot_ms, tot_plain, rows = 0.0, {S: 0.0 for S in SIZES}, 0.0, []
+    split = {S: {label: 0.0 for _, label in K7_PARTS + (("", "other"),)} for S in SIZES}
     flops = nbytes = 0.0
     for S in SIZES:
         for i, (H, C0, L) in enumerate(densenet_blocks(S)):
@@ -639,7 +774,13 @@ def phase_dense_block(dev):
                     row["ms"] = device_ms(lambda: k7.dense_block_apply(
                         buf, packed, ep, epilogue, out=got), calls=3)
                     tot_ms[S] += row["ms"]
-                    timed = f"; kernel {row['ms']:.3f} ms"
+                    row["split_ms"] = _profile_by_kernel(lambda: k7.dense_block_apply(
+                        buf, packed, ep, epilogue, out=got), 2)
+                    for name, ms in row["split_ms"].items():
+                        split[S][next((label for key, label in K7_PARTS if key in name),
+                                      "other")] += ms
+                    timed = (f"; kernel {row['ms']:.3f} ms (" + ", ".join(
+                        f"{k} {v:.4f}" for k, v in row["split_ms"].items()) + ")")
                 if taps_packed and S == 224:
                     row["plain_ms"] = cuda_ms(lambda: k7.dense_block_apply_plain(
                         ref, packed, ep, epilogue), reps=1, warmup=1)
@@ -654,13 +795,20 @@ def phase_dense_block(dev):
                 del buf, ref, got, want
     DETAIL["K7"] = rows
     DETAIL["K7_pass_ms"] = tot_ms
+    DETAIL["K7_split"] = split
     print(f"K7 one pallas trunk pass (4 blocks, {N} images): kernel {tot_ms[224]:.3f} ms "
           f"at 224 (plain {tot_plain:.3f} ms), {tot_ms[640]:.3f} ms at 640")
+    for S in SIZES:
+        print(f"K7 split at {S} by launch name (one pass): " + ", ".join(
+            f"{label} {ms:.4f} ms" for label, ms in split[S].items() if "epilogue" not in label))
+        print(f"K7 epilogue at {S} (one pass): " + ", ".join(
+            f"{label} {ms:.4f} ms" for label, ms in split[S].items() if "epilogue" in label))
     return with_bound({"name": "K7 dense block", "route": "cuda",
                        "source": "smg_tpu_torch/csrc/dense_block.cu",
                        "replaces": "smg_tpu/ops/dense_block_pallas.py:456",
                        "max_abs_err": worst, "ms": tot_ms[224], "plain_ms": tot_plain,
-                       "library_ms": None}, flops, nbytes, PEAK_BF16)
+                       "library_ms": None, "ms_640": tot_ms[640], "split_ms": split[224],
+                       "split_ms_640": split[640]}, flops, nbytes, PEAK_BF16)
 
 
 def _k6_layer(gen, dev, c_in):
@@ -688,11 +836,19 @@ def _conv_layer(dev, c_in, w1, s1, b1, w2, s2, b2):
     return lay
 
 
+# Block 4 at input 192: 6 x 6 images, under the 43 pixels at which K6's
+# 128-pixel tiles spanned at most 4 images.
+SMALL_BLOCK = (6, 512, 16)
+
+
 def phase_dense_layer_train(dev):
     """K6a/K6b against their plain versions at all 58 layer shapes of
-    DenseNet-121 at 224 with 64 images (one b32 style group), per-image
-    statistics. The yardstick: the 'conv' form's autograd forward + backward
-    of the same layer (F.conv2d and matmuls; not one library call)."""
+    DenseNet-121 at 224 and at 640 with 64 images (one b32 style group),
+    and at block 4 of input 192 (6 x 6 images), per-image statistics. The
+    table's times are the 224 pass's; at 640 the first and last layer of
+    each block are timed (kernels only), the 6 x 6 layers checked only. The
+    yardstick: the 'conv' form's autograd forward + backward of the same
+    layer (F.conv2d and matmuls; not one library call)."""
     from smg_tpu_torch.models import fast_trunk
     from smg_tpu_torch.ops import dense_layer_train as k6
 
@@ -702,7 +858,9 @@ def phase_dense_layer_train(dev):
     tot = dict(fwd=0.0, fwd_plain=0.0, bwd=0.0, bwd_plain=0.0, conv=0.0)
     worst_fwd = worst_bwd = 0.0
     flops_f = flops_b = bytes_f = bytes_b = 0.0
-    for H, C0, L in DENSENET_BLOCKS:
+    shapes = ([(224, b) for b in DENSENET_BLOCKS] + [(640, b) for b in densenet_blocks(640)]
+              + [(192, SMALL_BLOCK)])
+    for S, (H, C0, L) in shapes:
         C = C0 + 32 * L
         buf = torch.randn((N, H, H, C), generator=gen, device=dev).to(torch.bfloat16)
         dbuf = torch.randn((N, H, H, C), generator=gen, device=dev)
@@ -715,7 +873,7 @@ def phase_dense_layer_train(dev):
             want = k6.layer_fwd_plain(buf, c_in, *ops)
             ref = buf[..., c_in:c_in + 32]
             err_f = max([rel_err(out, ref)] + [rel_err(g, w) for g, w in zip(got, want)])
-            check(err_f <= TOL_BF16, f"K6a H={H} C_in={c_in}: rel err {err_f:.5f}")
+            check(err_f <= TOL_BF16, f"K6a {S} H={H} C_in={c_in}: rel err {err_f:.5f}")
             abs_f = float((out.float() - ref.float()).abs().max())
             h1, m1, v1, m2, v2 = want
             bwd_args = (h1, w1, w2, s1, b1, s2, b2, m1, v1, m2, v2)
@@ -726,10 +884,20 @@ def phase_dense_layer_train(dev):
             dx_p = d_p[..., :c_in] - dbuf[..., :c_in]
             errs = [float((a - b).norm() / b.norm().clamp(min=1e-12))
                     for a, b in zip((dx_k, *g_k), (dx_p, *g_p))]
-            check(max(errs) < TOL_GRAD, f"K6b H={H} C_in={c_in}: rel L2 {errs}")
+            check(max(errs) < TOL_GRAD, f"K6b {S} H={H} C_in={c_in}: rel L2 {errs}")
             abs_b = max(float((a - b).abs().max())
                         for a, b in zip((dx_k, *g_k), (dx_p, *g_p)))
             del d_p, g_p
+            worst_fwd, worst_bwd = max(worst_fwd, abs_f), max(worst_bwd, abs_b)
+            row = {"input": S, "H": H, "C_in": c_in, "fwd_rel_err": err_f,
+                   "bwd_rel_l2": max(errs)}
+            rows.append(row)
+            if S != 224:
+                if S == 640 and l in (0, L - 1):
+                    row["fwd"] = device_ms(lambda: k6.layer_fwd(buf, c_in, *ops))
+                    row["bwd"] = device_ms(lambda: k6.layer_bwd(buf, d_k, c_in, *bwd_args))
+                del d_k
+                continue
             t = dict(
                 fwd=device_ms(lambda: k6.layer_fwd(buf, c_in, *ops)),
                 fwd_plain=cuda_ms(lambda: k6.layer_fwd_plain(buf, c_in, *ops),
@@ -748,7 +916,7 @@ def phase_dense_layer_train(dev):
             del lay, x, d_k
             for k in tot:
                 tot[k] += t[k]
-            worst_fwd, worst_bwd = max(worst_fwd, abs_f), max(worst_bwd, abs_b)
+            row.update(t)
             P = N * H * H
             gemm = 2.0 * P * c_in * 128 + 2.0 * P * 1152 * 32
             flops_f += gemm
@@ -765,15 +933,16 @@ def phase_dense_layer_train(dev):
             bytes_f += 2.0 * P * (c_in + 32 + 128) + weights + bn + moments
             bytes_b += (2.0 * P * (c_in + 128) + 2.0 * P * 32 + 2.0 * P * c_in
                         + weights + 2 * weights + 2 * bn + moments)
-            rows.append({"H": H, "C_in": c_in, "fwd_rel_err": err_f,
-                         "bwd_rel_l2": max(errs), **t})
-        print(f"K6 train dense layers H={H} C_in {C0}..{C - 32} ({N} images): worst "
-              f"fwd rel err {max(r['fwd_rel_err'] for r in rows if r['H'] == H):.5f} "
+        block = [r for r in rows if (r["input"], r["H"]) == (S, H)]
+        timed = "".join(f"; C_in {r['C_in']}: K6a {r['fwd']:.4f} ms, K6b {r['bwd']:.4f} ms"
+                        for r in block if S == 640 and "fwd" in r)
+        print(f"K6 train dense layers {S}: H={H} C_in {C0}..{C - 32} ({N} images): worst "
+              f"fwd rel err {max(r['fwd_rel_err'] for r in block):.5f} "
               f"(bound {TOL_BF16:.5f}), worst bwd rel L2 "
-              f"{max(r['bwd_rel_l2'] for r in rows if r['H'] == H):.5f} (bound {TOL_GRAD})")
+              f"{max(r['bwd_rel_l2'] for r in block):.5f} (bound {TOL_GRAD}){timed}")
         del buf, dbuf
     DETAIL["K6"] = rows
-    print(f"K6 one train trunk pass ({len(rows)} layers, {N} images): K6a {tot['fwd']:.3f} ms "
+    print(f"K6 one train trunk pass at 224 (58 layers, {N} images): K6a {tot['fwd']:.3f} ms "
           f"(plain {tot['fwd_plain']:.3f}), K6b {tot['bwd']:.3f} ms (plain "
           f"{tot['bwd_plain']:.3f}); 'conv' autograd forward + backward {tot['conv']:.3f} ms")
     split = dense_layer_train_split(dev)
@@ -873,7 +1042,8 @@ def dense_layer_train_split(dev):
 
 
 def phase_dense_block_train(dev):
-    """K6 composed over each whole dense block of DenseNet-121 at 224, 64
+    """K6 composed over each whole dense block of DenseNet-121 at 224, and
+    block 4 at input 192 (6 x 6 images), 64
     images: the autograd Function the update runs (K6a layer by layer, then
     K6b in reverse, the prefix cotangent summed in an f32 block buffer)
     against the same walk through K6b's plain version from the same forward
@@ -885,7 +1055,7 @@ def phase_dense_block_train(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     bf, N = torch.bfloat16, TRAIN_IMAGES
     rows = []
-    for H, C0, L in DENSENET_BLOCKS:
+    for H, C0, L in DENSENET_BLOCKS + (SMALL_BLOCK,):
         x0 = torch.randn((N, H, H, C0), generator=gen, device=dev).to(bf).requires_grad_(True)
         layers = [[t.float().requires_grad_(True) for t in _k6_layer(gen, dev, C0 + 32 * l)]
                   for l in range(L)]
@@ -1442,6 +1612,7 @@ def main(argv):
                phase_stem(dev), phase_conv2(dev), *phase_dense_layer_train(dev),
                phase_dense_block(dev)]
     phase_dense_block_train(dev)
+    phase_index_limits(dev)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
     trainer, cfg, state, step_seconds = drive_act_path(dev, kernels)

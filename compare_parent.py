@@ -1,22 +1,27 @@
 """Another commit of the port against this one on one CUDA card, in turns.
 
-    python3 compare_parent.py --parent DIR --out DIR
+    python3 compare_parent.py --parent DIR --out DIR [--what k3,k7]
 
 DIR holds a checkout of the other commit (for example
 `git archive <commit> | tar -x -C DIR`, in a directory that git ignores).
-Runs, each in a fresh process with its checkout first on sys.path, in the
-order parent, this tree, this tree, parent:
+Runs each comparison of --what, each run in a fresh process with its
+checkout first on sys.path, in the order parent, this tree, this tree,
+parent, with this file's chip_smoke.py for every checkout:
 
-1. K6 (the train-mode dense layer) at all 58 layer shapes with 64 images:
-   chip_smoke.py's phase_dense_layer_train (device ms per pass against the
-   plain versions, and the per-launch split per dense block beside the
-   library yardsticks), with this file's chip_smoke.py for every checkout;
-2. the b32 training path: init_loop + 3 training steps with
-   fast_train_conv2="pk", per-phase host seconds, the loss and a digest of
-   the object poses after each step.
+- k3: K3 (the transition) at its three shapes at 224 and 640 with 104
+  images: chip_smoke.py's phase_transition (device ms per transition
+  beside its bound and torch.matmul of the pooled tensor);
+- k7: K7 (the `pallas` dense block) on the four blocks at 224 and 640:
+  phase_dense_block (device ms per block, split by launch name);
+- k6: K6 (the train-mode dense layer) at all layer shapes with 64 images:
+  phase_dense_layer_train (a package whose K6 refuses images under 43
+  pixels fails its 6 x 6 block);
+- train: the b32 training path: init_loop + 3 training steps with
+  fast_train_conv2="pk", per-phase host seconds, the loss and a digest of
+  the object poses after each step.
 
-Prints one line per run and writes k6_<label>.json and train_<label>.json
-to --out. Imports nothing of JAX.
+Prints one line per run and writes <what>_<label>.json to --out. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +51,16 @@ def _load(root: Path):
         raise RuntimeError(f"smg_tpu_torch came from {_build.__file__}, not {root}")
     _build.library()
     return cs
+
+
+def run_k3(cs, dev) -> dict:
+    kernel = cs.phase_transition(dev)
+    return {"kernels": [kernel], "transitions": cs.DETAIL["K3"]}
+
+
+def run_k7(cs, dev) -> dict:
+    kernel = cs.phase_dense_block(dev)
+    return {"kernels": [kernel], "blocks": cs.DETAIL["K7"], "split": cs.DETAIL["K7_split"]}
 
 
 def run_k6(cs, dev) -> dict:
@@ -88,11 +103,16 @@ def child(what: str, root: Path, label: str, out_dir: Path) -> None:
     torch.backends.cudnn.allow_tf32 = False
     cs = _load(root)
     dev = torch.device("cuda:0")
-    res = {"label": label, "root": str(root), "card": cs.card_line(),
-           **(run_k6(cs, dev) if what == "k6" else run_train(cs, dev))}
+    res = {"label": label, "root": str(root), "card": cs.card_line(), **RUNS[what](cs, dev)}
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"{what}_{label}.json").write_text(json.dumps(res, indent=1))
-    if what == "k6":
+    if what == "k3":
+        print(label, json.dumps({f"{r['input']}/{r['C']}": r["ms"] for r in res["transitions"]}),
+              flush=True)
+    if what == "k7":
+        print(label, json.dumps({f"{r['input']}/{r['H']}": {"ms": r["ms"], **r["split_ms"]}
+                                 for r in res["blocks"] if "ms" in r}), flush=True)
+    if what != "train":
         print(label, json.dumps({k["name"]: k["ms"] for k in res["kernels"]}), flush=True)
     else:
         for i, s in enumerate(res["steps"]):
@@ -101,10 +121,15 @@ def child(what: str, root: Path, label: str, out_dir: Path) -> None:
                   f"loss {s['loss']!r} poses {s['pose_digest']!r}", flush=True)
 
 
+RUNS = {"k3": run_k3, "k7": run_k7, "k6": run_k6, "train": run_train}
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True, help="checkout of the other commit")
     ap.add_argument("--out", type=Path, required=True, help="directory for the JSON results")
+    ap.add_argument("--what", default="k3,k7",
+                    help="comma-separated comparisons: " + ", ".join(RUNS))
     ap.add_argument("--child", nargs=3, metavar=("WHAT", "ROOT", "LABEL"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -115,7 +140,10 @@ def main(argv):
         raise SystemExit(f"{parent} holds no smg_tpu_torch package")
     turns = [(parent, "parent_a"), (HERE, "change_a"), (HERE, "change_b"), (parent, "parent_b")]
     failed = []
-    for what in ("k6", "train"):
+    whats = args.what.split(",")
+    if not set(whats) <= set(RUNS):
+        raise SystemExit(f"--what: expected some of {', '.join(RUNS)}, got {args.what}")
+    for what in whats:
         for root, label in turns:
             cmd = [sys.executable, str(Path(__file__).resolve()), "--parent", str(parent),
                    "--out", str(args.out), "--child", what, str(root), label]

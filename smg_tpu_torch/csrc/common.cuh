@@ -1,12 +1,8 @@
 // Shared device helpers of the port's kernels: bf16 packing, an affine
 // without FMA contraction (so the kernels round where the plain PyTorch
 // versions do), Hopper's cp.async / ldmatrix / mma.sync wrappers, and the
-// tensor-core building blocks of the dense-layer kernels (K2, K5, K7 eval;
-// K6 train):
-//   - gemm_bf16_kernel: a tiled bf16 GEMM whose A operand is computed while
-//     it is staged (any prologue) and whose result goes through an epilogue
-//     functor. WMMA m16n16k16, one shared-memory stage: simple, and slow
-//     (K3 and K7's transition epilogue still use it).
+// tensor-core building blocks of the DenseNet kernels (K2, K3, K5, K7
+// eval; K6 train):
 //   - gemm_bnrelu_kernel: the bottleneck GEMM of K2, K7 and K6a, pipelined:
 //     a 3-stage cp.async ring of raw x / B tiles, the norm + ReLU applied to
 //     the A fragments in registers (K2, K7: one affine per column) or once
@@ -16,14 +12,19 @@
 //     layer (K2, K5, K6a's forward, K7): a persistent grid, tap weights
 //     resident in shared memory, each tile's halo patch staged once by a
 //     double-buffered cp.async, nine shifted ldmatrix views of the patch.
+//   - transition_kernel: the DenseNet transition (K3, and K7's transition
+//     epilogue): BN, ReLU and the 2x2 mean of a tile of pooled pixels over
+//     all C channels into shared memory once (the raw pixels through a
+//     per-thread cp.async ring), then the 1x1 C -> C_out on mma.sync with
+//     A resident and the weight k-slices streamed through a cp.async ring;
+//     the pool's roundings a functor (K3's f32 sums, K7's bf16 arithmetic).
 // K6b's kernels (the transposed 3x3, the weight gradients, the BN1
 // backward) are K6's alone and live in dense_layer_train.cu.
-// What bounds the two redesigned ones is stated above each.
+// What bounds each is stated above it.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace smg {
@@ -66,106 +67,6 @@ __device__ __forceinline__ float affine(float x, float a, float b) {
 // relu(x * a + b) with two roundings, as the plain versions compute it.
 __device__ __forceinline__ float bn_relu(float x, float a, float b) {
   return fmaxf(affine(x, a, b), 0.0f);
-}
-
-// ---------------------------------------------------------------------------
-// Tiled GEMM: C[M, Ncols] = A[M, K] @ B[K, Ncols], bf16 operands, f32 sums.
-//   A rows come from `loader.load8(row, k, out8)` (8 consecutive k, any
-//   prologue math); B is a row-major bf16 matrix with leading dim ldb;
-//   the f32 result goes through `epi.store8(row, col, v8)` (8 consecutive
-//   columns). K must be a multiple of 32; M and Ncols are masked / tiled.
-// ---------------------------------------------------------------------------
-
-constexpr int GEMM_BM = 128;
-constexpr int GEMM_BN = 128;
-constexpr int GEMM_BK = 32;
-constexpr int GEMM_THREADS = 256;
-constexpr int GEMM_LDA = GEMM_BK + 8;   // bf16 elements; rows 80 B apart
-constexpr int GEMM_LDB = GEMM_BN + 8;   // rows 272 B apart
-
-template <class Loader, class Epilogue>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_bf16_kernel(Loader loader, const bf16* __restrict__ Bm, int ldb, int M,
-                 int K, Epilogue epi) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[GEMM_BM * GEMM_LDA];
-  __shared__ __align__(128) bf16 Bs[GEMM_BK * GEMM_LDB];
-  __shared__ __align__(128) float stage[8][16 * 16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp & 3;    // 4 warps along M: rows wm*32 .. +32
-  const int wn = warp >> 2;   // 2 warps along N: cols wn*64 .. +64
-  const int m0 = blockIdx.x * GEMM_BM;
-  const int n0 = blockIdx.y * GEMM_BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += GEMM_BK) {
-    // A tile: 128 rows x 32 k = 512 chunks of 8; two per thread.
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int e = tid + it * GEMM_THREADS;
-      const int r = e >> 2;
-      const int c8 = (e & 3) * 8;
-      float v[8];
-      if (m0 + r < M) {
-        loader.load8(m0 + r, k0 + c8, v);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v[q] = 0.0f;
-      }
-      *reinterpret_cast<uint4*>(&As[r * GEMM_LDA + c8]) = pack8(v);
-    }
-    // B tile: 32 k x 128 cols = 512 chunks of 8; two per thread.
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int e = tid + it * GEMM_THREADS;
-      const int r = e >> 4;
-      const int c8 = (e & 15) * 8;
-      *reinterpret_cast<uint4*>(&Bs[r * GEMM_LDB + c8]) =
-          *reinterpret_cast<const uint4*>(Bm + (size_t)(k0 + r) * ldb + n0 + c8);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GEMM_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfg[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &As[(wm * 32 + i * 16) * GEMM_LDA + kk], GEMM_LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bfg[j], &Bs[kk * GEMM_LDB + wn * 64 + j * 16], GEMM_LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], af[i], bfg[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: each 16x16 fragment through a per-warp staging tile; lane l
-  // takes row l/2, columns (l%2)*8 .. +8.
-  float* st = stage[warp];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r = lane >> 1;
-      const int c = (lane & 1) * 8;
-      const int row = m0 + wm * 32 + i * 16 + r;
-      if (row < M) epi.store8(row, n0 + wn * 64 + j * 16 + c, st + r * 16 + c);
-      __syncwarp();
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -751,6 +652,284 @@ cudaError_t conv3x3(Src src, const bf16* w2, bf16* out, int N, int H, int W, int
   conv3x3_kernel<Src, RoundTaps><<<plan.grid, C3_THREADS, plan.smem_bytes, stream>>>(
       src, w2, out, N, H, W, ld, c_off, plan);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The DenseNet transition (K3; K7's transition epilogue): for pooled pixel
+// q = (n, i, j) of x (N, H, W) with pixel stride ldx,
+//   pooled[q, c] = bf16( mean of relu(x a + b) over (2i, 2j), (2i+1, 2j),
+//                        (2i, 2j+1), (2i+1, 2j+1) )     the Pool functor's roundings
+//   out[q, :]    = bf16( pooled[q, :] @ wt )            f32 sums, k in order
+// written at pixel stride out_ld (a channel slice of the next block's
+// buffer). wt (C, C_out) bf16.
+//
+// What bounds it on the H100: bytes. At 224 with 104 images the three
+// transitions read 167 + 84 + 42 MB and write a quarter of that over 2,
+// against ~0.05 GFLOP per image of products: the bound is the input read
+// once, ~0.1 ms per pass. The design keeps every input byte to one read:
+//   - a block owns BM pooled pixels (128, 64 or 32: BM x C is 64 KB at the
+//     DenseNet shapes) and pools them once for ALL C channels into a
+//     resident bf16 A tile in shared memory (C rounded up to 64 with zero
+//     columns); no grid dimension over C_out recomputes the pool;
+//   - the pool's raw input goes through a 3-stage ring of 16 KB stages by
+//     cp.async, each thread staging and then pooling its own 8 channels of
+//     four raw pixels (no barrier: a thread reads only what it staged), so
+//     two stages of loads stay in flight while it computes;
+//   - the product runs from the resident A tile with mma.sync m16n8k16,
+//     8 warps of 32 rows x 64 columns, NB = 16384 / BM columns per pass (all
+//     of C_out at the DenseNet shapes), the weight's 16 KB k-slices (L2-
+//     resident, 64 KB to 1 MB) streamed through the same ring by cp.async;
+//   - the epilogue stages each bf16 result tile in the ring and writes it
+//     with 16-byte stores.
+// 112 KB of shared memory at the DenseNet shapes: two blocks per SM, so one
+// block's pool overlaps the other's product. The tile plan (rows, columns,
+// the pool's channel chunk) is ops/transition.py::transition_plan.
+// ---------------------------------------------------------------------------
+
+constexpr int TR_THREADS = 256;
+constexpr int TR_STAGES = 3;                  // the product's ring: weight k-slices
+constexpr int TR_STAGE_BYTES = 16384;
+constexpr int TR_RING_BYTES = TR_STAGES * TR_STAGE_BYTES;
+constexpr int TR_POOL_STAGES = 3;             // the pool's ring, in the same bytes
+constexpr int TR_POOL_STAGE_BYTES = TR_RING_BYTES / TR_POOL_STAGES;
+constexpr int TR_POOL_VALUES = TR_POOL_STAGE_BYTES / 8;   // pooled values a stage feeds
+
+// rows: pooled pixels per block (BM); cols: output columns per pass (NB);
+// kc: channels per pool stage (256, 128, 64 or 32, dividing C); grid:
+// cdiv(Q, rows); smem_bytes: rows x round_up(C, 64) x 2 + the ring.
+struct TransitionPlan {
+  int rows, cols, kc, grid, smem_bytes;
+};
+
+// K3's pool (transition_pallas.py:46-51): h = relu(x a + b) in f32,
+// ((h00 + h10) + (h01 + h11)) * 0.25, rounded once (by the A tile's pack).
+struct TransitionPool {
+  __device__ static void pool8(const uint4 (&raw)[4], const float* a, const float* b,
+                               float* v) {
+    float h[4][8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) unpack8(raw[k], h[k]);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float s0 = __fadd_rn(bn_relu(h[0][c], a[c], b[c]), bn_relu(h[1][c], a[c], b[c]));
+      const float s1 = __fadd_rn(bn_relu(h[2][c], a[c], b[c]), bn_relu(h[3][c], a[c], b[c]));
+      v[c] = __fmul_rn(__fadd_rn(s0, s1), 0.25f);
+    }
+  }
+};
+
+// K7's pool (dense_block_pallas.py:376-392): hs = bf16(relu(x a + b)); the
+// row pairs summed and rounded, then the column pair, rounded, x 0.25.
+struct TransitionPoolBf16 {
+  __device__ static void pool8(const uint4 (&raw)[4], const float* a, const float* b,
+                               float* v) {
+    float h[4][8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) unpack8(raw[k], h[k]);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float s0 = round_bf16(__fadd_rn(round_bf16(bn_relu(h[0][c], a[c], b[c])),
+                                            round_bf16(bn_relu(h[1][c], a[c], b[c]))));
+      const float s1 = round_bf16(__fadd_rn(round_bf16(bn_relu(h[2][c], a[c], b[c])),
+                                            round_bf16(bn_relu(h[3][c], a[c], b[c]))));
+      v[c] = __fmul_rn(round_bf16(__fadd_rn(s0, s1)), 0.25f);
+    }
+  }
+};
+
+template <int BM, class Pool>
+__global__ void __launch_bounds__(TR_THREADS, 2)
+transition_kernel(const bf16* __restrict__ x, int H, int W, int ldx, const float* __restrict__ a,
+                  const float* __restrict__ b, const bf16* __restrict__ wt, int C, int C_out,
+                  bf16* __restrict__ out, int out_ld, int Q, int kc) {
+  constexpr int NB = 16384 / BM;        // columns per pass: 8 warps of 32 x 64
+  constexpr int WM = BM / 32;           // warps along M
+  constexpr int KB = 8192 / NB;         // weight k-rows per 16 KB stage: 64, 32, 16
+  constexpr int ROWB = NB * 2;          // bytes of a weight / result row
+  extern __shared__ __align__(128) unsigned char tsm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int Cp = (C + 63) & ~63;        // A's columns: C, zero-padded to 64
+  const int ROWA = Cp * 2;
+  unsigned char* A = tsm;
+  unsigned char* ring = tsm + BM * ROWA;
+  const int m0 = blockIdx.x * BM;
+
+  // ---- the pool: A[r, c] for r < BM, c < C, once --------------------------
+  for (int e = tid; e < BM * ((Cp - C) >> 3); e += TR_THREADS) {
+    const int r = e / ((Cp - C) >> 3), c = (C >> 3) + e % ((Cp - C) >> 3);
+    *reinterpret_cast<uint4*>(A + r * ROWA + ((c ^ (r & 7)) << 4)) = make_uint4(0, 0, 0, 0);
+  }
+  {
+    const int chunks = kc >> 3;                     // 16-byte chunks of a pixel per stage
+    const int pr = min(TR_POOL_VALUES / kc, BM);    // pooled pixels per stage
+    const int kcs = C / kc;
+    const int n_stages = (BM / pr) * kcs;
+    const int p = tid / chunks, c = tid - p * chunks;
+    const bool active = p < pr;
+    const int Wo = W >> 1, HWo = (H >> 1) * Wo;
+    auto load = [&](int st, int slot) {
+      if (!active) return;
+      const int r = (st / kcs) * pr + p, q = m0 + r;
+      const int k = (st % kcs) * kc + c * 8;
+      const uint32_t dst = smem_addr(ring + slot * TR_POOL_STAGE_BYTES) + (p * 4 * chunks + c) * 16;
+      const bool ok = q < Q;
+      const bf16* src = x;
+      if (ok) {
+        const int n = q / HWo, rem = q - n * HWo;
+        const int i = rem / Wo, j = rem - i * Wo;
+        src = x + (((size_t)n * H + 2 * i) * W + 2 * j) * ldx + k;
+      }
+      const size_t down = (size_t)W * ldx;
+      cp_async16(dst, src, ok);                                          // (2i, 2j)
+      cp_async16(dst + chunks * 16, ok ? src + down : x, ok);            // (2i+1, 2j)
+      cp_async16(dst + 2 * chunks * 16, ok ? src + ldx : x, ok);         // (2i, 2j+1)
+      cp_async16(dst + 3 * chunks * 16, ok ? src + down + ldx : x, ok);  // (2i+1, 2j+1)
+    };
+#pragma unroll
+    for (int s = 0; s < TR_POOL_STAGES - 1; ++s) {
+      if (s < n_stages) load(s, s);
+      cp_async_commit();
+    }
+    for (int st = 0; st < n_stages; ++st) {
+      cp_async_wait<TR_POOL_STAGES - 2>();
+      // The slot of stage st + S - 1 is the one this thread pooled at st - 1.
+      const int nst = st + TR_POOL_STAGES - 1;
+      if (nst < n_stages) load(nst, nst % TR_POOL_STAGES);
+      cp_async_commit();
+      if (!active) continue;
+      const int r = (st / kcs) * pr + p;
+      const int k = (st % kcs) * kc + c * 8;
+      const unsigned char* src =
+          ring + (st % TR_POOL_STAGES) * TR_POOL_STAGE_BYTES + (p * 4 * chunks + c) * 16;
+      uint4 raw[4];
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4)
+        raw[q4] = *reinterpret_cast<const uint4*>(src + q4 * chunks * 16);
+      float av[8], bv[8], v[8];
+      *reinterpret_cast<float4*>(av) = __ldg(reinterpret_cast<const float4*>(a + k));
+      *reinterpret_cast<float4*>(av + 4) = __ldg(reinterpret_cast<const float4*>(a + k + 4));
+      *reinterpret_cast<float4*>(bv) = __ldg(reinterpret_cast<const float4*>(b + k));
+      *reinterpret_cast<float4*>(bv + 4) = __ldg(reinterpret_cast<const float4*>(b + k + 4));
+      Pool::pool8(raw, av, bv, v);
+      *reinterpret_cast<uint4*>(A + r * ROWA + (((k >> 3) ^ (r & 7)) << 4)) = pack8(v);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- the product: out[m0 .. m0 + BM, n0 .. n0 + NB) per pass ------------
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, t = lane & 3;
+  const int KT = Cp / KB;
+  for (int n0 = 0; n0 < C_out; n0 += NB) {
+    auto load_w = [&](int kt, int slot) {
+      const uint32_t Bs = smem_addr(ring + slot * TR_STAGE_BYTES);
+      const int k0 = kt * KB;
+#pragma unroll
+      for (int e = tid; e < KB * (NB >> 3); e += TR_THREADS) {
+        const int r = e / (NB >> 3), c = e % (NB >> 3);
+        const bool ok = k0 + r < C && n0 + c * 8 < C_out;
+        cp_async16(Bs + r * ROWB + ((c ^ (r & 7)) << 4),
+                   ok ? wt + (size_t)(k0 + r) * C_out + n0 + c * 8 : wt, ok);
+      }
+    };
+    float acc[2][8][4];
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[f][n][q] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < TR_STAGES - 1; ++s) {
+      if (s < KT) load_w(s, s);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<TR_STAGES - 2>();
+      __syncthreads();
+      if (kt + TR_STAGES - 1 < KT) load_w(kt + TR_STAGES - 1, (kt + TR_STAGES - 1) % TR_STAGES);
+      cp_async_commit();
+      const unsigned char* Bs = ring + (kt % TR_STAGES) * TR_STAGE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < KB; kk += 16) {
+        uint32_t af[2][4], bfr[4][4];
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const int r = wm * 32 + f * 16 + (lane & 15);
+          const int c = ((kt * KB + kk) >> 3) + (lane >> 4);
+          ldmatrix_x4(smem_addr(A + r * ROWA + ((c ^ (r & 7)) << 4)), af[f]);
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < 4; ++n2) {
+          const int r = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int c = wn * 8 + n2 * 2 + (lane >> 4);
+          ldmatrix_x4_trans(smem_addr(Bs + r * ROWB + ((c ^ (r & 7)) << 4)), bfr[n2]);
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < 4; ++n2)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            mma_16816(acc[f][2 * n2], af[f], bfr[n2][0], bfr[n2][1]);
+            mma_16816(acc[f][2 * n2 + 1], af[f], bfr[n2][2], bfr[n2][3]);
+          }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // The bf16 result tile into the ring (16-byte chunk c of row r at
+    // c ^ (r & 7)), then out by 16-byte stores.
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + f * 16 + g + 8 * h;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<uint32_t*>(ring + r * ROWB + (((wn * 8 + n) ^ (r & 7)) << 4) + 4 * t) =
+              pack2(acc[f][n][2 * h], acc[f][n][2 * h + 1]);
+      }
+    __syncthreads();
+#pragma unroll
+    for (int e = tid; e < BM * (NB >> 3); e += TR_THREADS) {
+      const int r = e / (NB >> 3), c = e % (NB >> 3);
+      if (m0 + r < Q && n0 + c * 8 < C_out)
+        *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * out_ld + n0 + c * 8) =
+            *reinterpret_cast<const uint4*>(ring + r * ROWB + ((c ^ (r & 7)) << 4));
+    }
+    __syncthreads();
+  }
+}
+
+template <int BM, class Pool>
+cudaError_t launch_transition(const bf16* x, int H, int W, int ldx, const float* a,
+                              const float* b, const bf16* wt, int C, int C_out, bf16* out,
+                              int out_ld, int Q, TransitionPlan plan, cudaStream_t stream) {
+  static const cudaError_t set = cudaFuncSetAttribute(
+      transition_kernel<BM, Pool>, cudaFuncAttributeMaxDynamicSharedMemorySize, C3_SMEM_MAX);
+  if (set != cudaSuccess) return set;
+  transition_kernel<BM, Pool><<<plan.grid, TR_THREADS, plan.smem_bytes, stream>>>(
+      x, H, W, ldx, a, b, wt, C, C_out, out, out_ld, Q, plan.kc);
+  return cudaGetLastError();
+}
+
+// Launch the transition above with `plan` (rows 128, 64 or 32) on `stream`.
+template <class Pool>
+cudaError_t transition(const bf16* x, int N, int H, int W, int ldx, const float* a,
+                       const float* b, const bf16* wt, int C, int C_out, bf16* out, int out_ld,
+                       TransitionPlan plan, cudaStream_t stream) {
+  const int Q = N * (H / 2) * (W / 2);
+  if (Q == 0) return cudaGetLastError();
+  if (plan.rows == 128)
+    return launch_transition<128, Pool>(x, H, W, ldx, a, b, wt, C, C_out, out, out_ld, Q, plan,
+                                        stream);
+  if (plan.rows == 64)
+    return launch_transition<64, Pool>(x, H, W, ldx, a, b, wt, C, C_out, out, out_ld, Q, plan,
+                                       stream);
+  if (plan.rows == 32)
+    return launch_transition<32, Pool>(x, H, W, ldx, a, b, wt, C, C_out, out, out_ld, Q, plan,
+                                       stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace smg

@@ -34,8 +34,11 @@
 // GEMM (common.cuh's gemm_bnrelu_kernel: norm1 + ReLU on the A fragments)
 // with norm2 + ReLU on the unrounded f32 sum in its epilogue (h2 to a bf16
 // scratch), then K2's 3x3 (common.cuh's conv3x3_kernel: resident tap
-// weights, halo patches staged once) writing the 32 channels in place; then one epilogue kernel (the WMMA GEMM with the
-// BN/ReLU/bf16-pool loader, or an elementwise norm5). The TPU's B_tile, row bands, halo, width and channel
+// weights, halo patches staged once) writing the 32 channels in place;
+// then one epilogue kernel: K3's transition_kernel (common.cuh: the pool
+// once per pooled pixel for all channels into shared memory, the 1x1 from
+// there) with K7's bf16-arithmetic pool (TransitionPoolBf16), or an
+// elementwise norm5. The TPU's B_tile, row bands, halo, width and channel
 // padding and selection-matrix append have no counterpart: every launch
 // masks its own edges, for any N, H, W. Per-image residency in shared
 // memory (clusters' distributed shared memory for blocks 2-3), wgmma and
@@ -51,49 +54,6 @@ constexpr int BOTTLENECK = 128;
 constexpr int GROWTH = 32;
 constexpr int EPILOGUE_TRANSITION = 0;
 constexpr int EPILOGUE_FINAL_BN = 1;
-
-// The transition's A operand at pooled pixel q: hs = bf16(relu(x at + bt))
-// at (2i, 2j), (2i+1, 2j), (2i, 2j+1), (2i+1, 2j+1); the row pairs summed
-// and rounded, then the column pair, rounded, times 0.25 (exact).
-struct PoolBf16Loader {
-  const bf16* x;   // (N, H, W, ld)
-  const float* a;
-  const float* b;
-  int H, W, ld;
-  __device__ void load8(int q, int k, float* v) const {
-    const int Wo = W / 2, Ho = H / 2;
-    const int j = q % Wo;
-    const int t = q / Wo;
-    const int i = t % Ho;
-    const int n = t / Ho;
-    const size_t row0 = ((size_t)n * H + 2 * i) * W + 2 * j;  // (2i, 2j)
-    const size_t row1 = row0 + W;                              // (2i+1, 2j)
-    float h00[8], h10[8], h01[8], h11[8];
-    smg::unpack8(*reinterpret_cast<const uint4*>(x + row0 * ld + k), h00);
-    smg::unpack8(*reinterpret_cast<const uint4*>(x + row1 * ld + k), h10);
-    smg::unpack8(*reinterpret_cast<const uint4*>(x + (row0 + 1) * ld + k), h01);
-    smg::unpack8(*reinterpret_cast<const uint4*>(x + (row1 + 1) * ld + k), h11);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float av = a[k + c], bv = b[k + c];
-      const float s0 = smg::round_bf16(
-          __fadd_rn(smg::round_bf16(smg::bn_relu(h00[c], av, bv)),
-                    smg::round_bf16(smg::bn_relu(h10[c], av, bv))));
-      const float s1 = smg::round_bf16(
-          __fadd_rn(smg::round_bf16(smg::bn_relu(h01[c], av, bv)),
-                    smg::round_bf16(smg::bn_relu(h11[c], av, bv))));
-      v[c] = __fmul_rn(smg::round_bf16(__fadd_rn(s0, s1)), 0.25f);
-    }
-  }
-};
-
-struct StoreEpilogue {
-  bf16* out;   // (Q, out_ld), columns [0, C_out)
-  int out_ld;
-  __device__ void store8(int row, int col, const float* v) const {
-    *reinterpret_cast<uint4*>(out + (size_t)row * out_ld + col) = smg::pack8(v);
-  }
-};
 
 // norm5: out = bf16(x a + b), 8 channels per thread.
 __global__ void final_bn_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
@@ -117,7 +77,9 @@ __global__ void final_bn_kernel(const bf16* __restrict__ x, const float* __restr
 // (C_l, 128) bottleneck weights stacked row-wise; a2, b2 (L, 128); w2
 // (L, 9, 128, 32); at, bt (Cf,); wt (Cf, C_out) for the transition (unused
 // by final_bn); h2 scratch (P, 128); gemm_bm: the bottleneck GEMM's tile
-// rows (128 or 64); c3_*: the 3x3's tile plan (ops/conv2.py::conv3x3_plan).
+// rows (128 or 64); c3_*: the 3x3's tile plan (ops/conv2.py::conv3x3_plan);
+// tr_*: the transition's (ops/transition.py::transition_plan; unused by
+// final_bn).
 extern "C" int smg_dense_block(bf16* buf, const float* a1, const float* b1,
                                const bf16* w1, const float* a2, const float* b2,
                                const bf16* w2, const float* at, const float* bt,
@@ -125,6 +87,7 @@ extern "C" int smg_dense_block(bf16* buf, const float* a1, const float* b1,
                                int W, int C0, int L, int C_out, int out_ld,
                                int epilogue, int taps_packed, int gemm_bm, int c3_images,
                                int c3_rows, int c3_cols, int c3_grid, int c3_smem,
+                               int tr_rows, int tr_cols, int tr_kc, int tr_grid, int tr_smem,
                                cudaStream_t stream) {
   const int P = N * H * W;
   const smg::Conv3x3Plan plan{c3_images, c3_rows, c3_cols, c3_grid, c3_smem};
@@ -148,12 +111,9 @@ extern "C" int smg_dense_block(bf16* buf, const float* a1, const float* b1,
     off += c_in;
   }
   if (epilogue == EPILOGUE_TRANSITION) {
-    const int Q = N * (H / 2) * (W / 2);
-    dim3 grid((Q + smg::GEMM_BM - 1) / smg::GEMM_BM, C_out / smg::GEMM_BN);
-    if (Q > 0)
-      smg::gemm_bf16_kernel<<<grid, smg::GEMM_THREADS, 0, stream>>>(
-          PoolBf16Loader{buf, at, bt, H, W, Cf}, wt, C_out, Q, Cf,
-          StoreEpilogue{out, out_ld});
+    const smg::TransitionPlan tp{tr_rows, tr_cols, tr_kc, tr_grid, tr_smem};
+    return (int)smg::transition<smg::TransitionPoolBf16>(buf, N, H, W, Cf, at, bt, wt, Cf, C_out,
+                                                         out, out_ld, tp, stream);
   } else if (epilogue == EPILOGUE_FINAL_BN) {
     const long long n = (long long)P * (Cf / 8);
     final_bn_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(buf, at, bt, out, P, Cf,

@@ -39,10 +39,13 @@
 //      per block, by the same per-channel reduction as a per-layer pass
 //      (same bits). The per-layer pass read the whole prefix: O(L^2) bytes.
 //   2. the bottleneck on common.cuh's pipelined gemm_bnrelu_kernel with a
-//      per-image affine (ImageAffine): each stage computes a1, b1 of its
+//      per-image affine (ImageAffine<S>): each stage computes a1, b1 of its
 //      k-slice for the tile's images (a 128-row tile spans up to 4 images
-//      at H = 7) and applies norm1 + ReLU to the staged x once, each row
-//      with its image's; h1 rounded to bf16 in the epilogue.
+//      at H = 7, 128 at H = W = 1) and applies norm1 + ReLU to the staged x
+//      once, each row with its image's; h1 rounded to bf16 in the
+//      epilogue. S, the table's image slots, is 4, 16 or 64, and the tile
+//      rows 128 or 64: ops/dense_layer_train.py::image_plan picks both so
+//      that the table fits shared memory.
 //   3-4. h1_sums_kernel / h1_moments_kernel: norm2's moments from 16-byte
 //      loads of h1, per-chunk partials added in order, and the affine.
 //   5. conv3x3_kernel (K2's) with the Y2Rows source.
@@ -75,7 +78,9 @@
 //      ring of raw x and dh1 tiles, norm1 + ReLU applied once per staged
 //      tile; one partial per split.
 //   7-9. BN1 backward by recompute, as the TPU kernel did: dy1 = dh1 w1^T
-//      (K = 128; w1 read in its stored layout) twice. Pass 1 (dy1_kernel
+//      (K = 128; w1 read in its stored layout) twice, on tiles of up to 128
+//      pixels with a table of 4 or 16 image slots (image_plan: fewer rows
+//      per tile for images under 9 pixels). Pass 1 (dy1_kernel
 //      <false>) reduces du1 and du1 xhat1 into per-(tile, image) partials,
 //      reduce_dy1_kernel adds them in tile order, pass 2 (dy1_kernel<true>)
 //      forms dx and does the one read-modify-write of the f32 prefix
@@ -112,7 +117,6 @@ using smg::smem_addr;
 constexpr int BOTTLENECK = 128;
 constexpr int GROWTH = 32;
 constexpr float BN_EPS = 1e-5f;
-constexpr int SLOTS = 4;        // images a 128-pixel tile may span (H W >= 43)
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -263,9 +267,10 @@ __global__ void h1_moments_kernel(const float* __restrict__ part, int S, int HW,
 
 // norm1's per-image affine for gemm_bnrelu_kernel: rows are pixels of
 // consecutive images of HW pixels; each stage computes (a, b) of its
-// k-slice from the moments for each image its tile covers.
+// k-slice from the moments for each image its tile covers (at most S).
+template <int S>
 struct ImageAffine {
-  static constexpr int kSlots = SLOTS;
+  static constexpr int kSlots = S;
   static constexpr bool kInSmem = true;
   const float* mean;
   const float* var;
@@ -277,11 +282,11 @@ struct ImageAffine {
                         int threads) const {
     const int n0 = m0 / HW;
     const int n1 = min(N - 1, (m0 + rows - 1) / HW);
-    for (int e = tid; e < kSlots * smg::GEMMN_BK; e += threads) {
+    for (int e = tid; e < (n1 - n0 + 1) * smg::GEMMN_BK; e += threads) {
       const int s = e / smg::GEMMN_BK, c = e % smg::GEMMN_BK;
       const int n = n0 + s, k = k0 + c;
       float a = 0.0f, b = 0.0f;
-      if (n <= n1 && k < K) {
+      if (k < K) {
         const size_t o = (size_t)n * ldm + k;
         bn_affine(mean[o], var[o], scale[k], bias[k], &a, &b);
       }
@@ -851,12 +856,14 @@ dw1_kernel(const bf16* __restrict__ x, int ld, int C, const float* __restrict__ 
     }
 }
 
-// dy1 = dh1 w1^T on a tile of 128 pixels (blockIdx.x) x 128 prefix channels
-// (blockIdx.y), K = 128, staged in two cp.async groups of 64 (the second
-// with the tile's x), w1 read in its stored (C_in, 128) layout as the
-// column-major B. du1 = [x a1 + b1 > 0] dy1.
+// dy1 = dh1 w1^T on a tile of TR <= 128 pixels (blockIdx.x; rows TR..127
+// of the 128-row MMA tile read zeros and are not stored) x 128 prefix
+// channels (blockIdx.y), K = 128, staged in two cp.async groups of 64 (the
+// second with the tile's x), w1 read in its stored (C_in, 128) layout as
+// the column-major B. du1 = [x a1 + b1 > 0] dy1. A tile spans at most S
+// images (ops/dense_layer_train.py::image_plan).
 //   Pass 1: du1 and du1 xhat1 summed per (tile, image, channel) in row
-//   order into part (tiles, SLOTS, 2, C_in) (du1 goes through shared memory).
+//   order into part (tiles, S, 2, C_in) (du1 goes through shared memory).
 //   Pass 2: dx = a1 (du1 - sum du1 / n - xhat1 sum(du1 xhat1) / n) from
 //   sums (2, N, C_in); dbuf[p, c] += bf16(dx).
 // The per-(image, channel) a1, b1, m1, r1 (and the two means) of the
@@ -864,22 +871,26 @@ dw1_kernel(const bf16* __restrict__ x, int ld, int C, const float* __restrict__ 
 constexpr int DY_BM = 128;
 constexpr int DY_TILE_BYTES = DY_BM * 256;                   // 32 KB: 128 rows of 128 bf16
 constexpr int DY_TAB = 6;                                    // a, b, m, r, mean du, mean du xh
-constexpr int DY_SMEM = 3 * DY_TILE_BYTES + DY_TAB * SLOTS * 128 * 4;
 
-template <bool PASS2>
+template <int S>
+constexpr int dy_smem() {
+  return 3 * DY_TILE_BYTES + DY_TAB * S * 128 * 4;
+}
+
+template <bool PASS2, int S>
 __global__ void __launch_bounds__(256, 2)
 dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
            const bf16* __restrict__ x, int ld, int C, const float* __restrict__ aff1,
            const float* __restrict__ mean1, int ldm, const float* __restrict__ sums,
-           float* __restrict__ part, float* __restrict__ dbuf, int N, int HW, int P) {
+           float* __restrict__ part, float* __restrict__ dbuf, int N, int HW, int P, int TR) {
   extern __shared__ __align__(128) unsigned char ysm[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * DY_BM;
+  const int m0 = blockIdx.x * TR;
   const int c0 = blockIdx.y * 128;
   const uint32_t ds = smem_addr(ysm), ws = ds + DY_TILE_BYTES, xsa = ws + DY_TILE_BYTES;
   const unsigned char* xs = ysm + 2 * DY_TILE_BYTES;
   float* tab = reinterpret_cast<float*>(ysm + 3 * DY_TILE_BYTES);   // [k][slot][128]
-  const int rows = min(DY_BM, P - m0);
+  const int rows = min(TR, P - m0);
   const int n_lo = m0 / HW;
   const int n_hi = min(N - 1, (m0 + rows - 1) / HW);
 
@@ -888,7 +899,7 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
     for (int e = tid; e < DY_BM * 8; e += 256) {
       const int r = e >> 3, c = half * 8 + (e & 7);
       const int so = r * 256 + ((c ^ (r & 7)) << 4);
-      const bool okd = m0 + r < P;
+      const bool okd = r < rows;
       cp_async16(ds + so, okd ? dh1 + (size_t)(m0 + r) * BOTTLENECK + c * 8 : dh1, okd);
       const bool okw = c0 + r < C;
       cp_async16(ws + so, okw ? w1 + (size_t)(c0 + r) * BOTTLENECK + c * 8 : w1, okw);
@@ -896,7 +907,7 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
     if (half == 1) {
       for (int e = tid; e < DY_BM * 16; e += 256) {
         const int r = e >> 4, c = e & 15;
-        const bool ok = m0 + r < P && c0 + c * 8 < C;
+        const bool ok = r < rows && c0 + c * 8 < C;
         cp_async16(xsa + r * 256 + ((c ^ (r & 7)) << 4),
                    ok ? x + (size_t)(m0 + r) * ld + c0 + c * 8 : x, ok);
       }
@@ -905,7 +916,7 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
   }
   {
     const int NC = N * C;
-    for (int e = tid; e < SLOTS * 128; e += 256) {
+    for (int e = tid; e < S * 128; e += 256) {
       const int j = e >> 7, cl = e & 127, n = n_lo + j, c = c0 + cl;
       float v[DY_TAB] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (n <= n_hi && c < C) {
@@ -920,7 +931,7 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
         }
       }
 #pragma unroll
-      for (int k = 0; k < DY_TAB; ++k) tab[(k * SLOTS + j) * 128 + cl] = v[k];
+      for (int k = 0; k < DY_TAB; ++k) tab[(k * S + j) * 128 + cl] = v[k];
     }
   }
   float acc[2][8][4];
@@ -974,11 +985,12 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
     if (PASS2) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int p = m0 + wm * 32 + f * 16 + g + 8 * h;
+        const int rl = wm * 32 + f * 16 + g + 8 * h;
+        const int p = m0 + rl;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const int cl = wn * 64 + jj * 8 + 2 * t;
-          old[h][jj] = p < P && c0 + cl < C
+          old[h][jj] = rl < rows && c0 + cl < C
                            ? *reinterpret_cast<const float2*>(dbuf + (size_t)p * ld + c0 + cl)
                            : make_float2(0.0f, 0.0f);
         }
@@ -988,11 +1000,11 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
     for (int h = 0; h < 2; ++h) {
       const int rl = wm * 32 + f * 16 + g + 8 * h;
       const int p = m0 + rl;
-      const int j = p < P ? p / HW - n_lo : 0;
+      const int j = rl < rows ? p / HW - n_lo : 0;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int cl = wn * 64 + jj * 8 + 2 * t;
-        const bool ok = p < P && c0 + cl < C;
+        const bool ok = rl < rows && c0 + cl < C;
         const float2 xv = ld_bf2(reinterpret_cast<const bf16*>(
             xs + rl * 256 + (((cl >> 3) ^ (rl & 7)) << 4) + (cl & 7) * 2));
         const float xx[2] = {xv.x, xv.y};
@@ -1000,7 +1012,7 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
           const float* tb = tab + j * 128 + cl + k;
-          const float u1 = smg::affine(xx[k], tb[0], tb[SLOTS * 128]);
+          const float u1 = smg::affine(xx[k], tb[0], tb[S * 128]);
           d[k] = ok && u1 > 0.0f ? acc[f][jj][2 * h + k] : 0.0f;
         }
         if (!PASS2) {
@@ -1011,8 +1023,8 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
 #pragma unroll
           for (int k = 0; k < 2; ++k) {
             const float* tb = tab + j * 128 + cl + k;
-            const float xh = __fmul_rn(xx[k] - tb[2 * SLOTS * 128], tb[3 * SLOTS * 128]);
-            dx[k] = smg::round_bf16(tb[0] * (d[k] - tb[4 * SLOTS * 128] - xh * tb[5 * SLOTS * 128]));
+            const float xh = __fmul_rn(xx[k] - tb[2 * S * 128], tb[3 * S * 128]);
+            dx[k] = smg::round_bf16(tb[0] * (d[k] - tb[4 * S * 128] - xh * tb[5 * S * 128]));
           }
           *reinterpret_cast<float2*>(dbuf + (size_t)p * ld + c0 + cl) =
               make_float2(old[h][jj].x + dx[0], old[h][jj].y + dx[1]);
@@ -1026,12 +1038,12 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
   // rows of each image a run of its own.
   const int s = tid >> 7, cl = tid & 127, c = c0 + cl;
   if (c >= C) return;
-  float* out = part + (size_t)blockIdx.x * SLOTS * 2 * C + s * C + c;
+  float* out = part + (size_t)blockIdx.x * S * 2 * C + s * C + c;
   const unsigned char* xcol = xs + (cl & 7) * 2;
   for (int j = 0, r0 = 0; r0 < rows; ++j) {
     const int r1 = min(rows, (n_lo + j + 1) * HW - m0);
     const float* tb = tab + j * 128 + cl;
-    const float m = tb[2 * SLOTS * 128], rs = tb[3 * SLOTS * 128];
+    const float m = tb[2 * S * 128], rs = tb[3 * S * 128];
     float v = 0.0f;
 #pragma unroll 8
     for (int r = r0; r < r1; ++r) {
@@ -1050,19 +1062,19 @@ dy1_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
 }
 
 // sums (2, N, C): pass 1's partials of image n (blockIdx.x) summed in tile
-// order; tile t covers pixels [128 t, 128 t + 128), image n is its slot
-// n - (128 t) / HW.
+// order; tile t covers pixels [TR t, TR t + TR), image n is its slot
+// n - (TR t) / HW of S.
 __global__ void reduce_dy1_kernel(const float* __restrict__ part, float* __restrict__ sums,
-                                  int N, int HW, int C) {
+                                  int N, int HW, int C, int TR, int S) {
   const int n = blockIdx.x;
   const int e = blockIdx.y * blockDim.x + threadIdx.x;
   if (e >= 2 * C) return;
   const int s = e / C, c = e - s * C;
-  const int t_lo = n * HW / DY_BM, t_hi = ((n + 1) * HW - 1) / DY_BM;
+  const int t_lo = n * HW / TR, t_hi = ((n + 1) * HW - 1) / TR;
   float v = 0.0f;
   for (int t = t_lo; t <= t_hi; ++t) {
-    const int j = n - t * DY_BM / HW;
-    v += part[(((size_t)t * SLOTS + j) * 2 + s) * C + c];
+    const int j = n - t * TR / HW;
+    v += part[(((size_t)t * S + j) * 2 + s) * C + c];
   }
   sums[((size_t)s * N + n) * C + c] = v;
 }
@@ -1112,6 +1124,20 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// BN1's backward (steps 7-9): dy1 pass 1, the reduction of its partials,
+// dy1 pass 2, on tiles of TR pixels with S image slots.
+template <int S>
+void dy1_passes(const bf16* dh1, const bf16* w1, const bf16* x, int ld, int C,
+                const float* aff1, const float* mean1, int ldm, float* part, float* sums,
+                float* dbuf, int N, int HW, int P, int TR, cudaStream_t stream) {
+  const dim3 tiles(cdiv(P, TR), cdiv(C, 128));
+  dy1_kernel<false, S><<<tiles, 256, dy_smem<S>(), stream>>>(dh1, w1, x, ld, C, aff1, mean1, ldm,
+                                                              nullptr, part, nullptr, N, HW, P, TR);
+  reduce_dy1_kernel<<<dim3(N, cdiv(2 * C, 256)), 256, 0, stream>>>(part, sums, N, HW, C, TR, S);
+  dy1_kernel<true, S><<<tiles, 256, dy_smem<S>(), stream>>>(dh1, w1, x, ld, C, aff1, mean1, ldm,
+                                                             sums, nullptr, dbuf, N, HW, P, TR);
+}
+
 }  // namespace
 
 // K6a. buf (P, ld) bf16: reads [0, C_in), writes [C_in, C_in + 32).
@@ -1119,14 +1145,16 @@ cudaError_t allow_smem(K kernel, int bytes) {
 // block's per-image mean and var, channels [0, c_known) already there; this
 // call adds [c_known, C_in). Outputs h1 (P, 128) bf16 and st2 (4, N, 128)
 // f32: mean2, var2, a2, b2; h1_part (N, h1_splits, 2, 128) is scratch.
-// gemm_bm: the GEMM's tile rows; h1_splits, h1_chunk: the h1 moments'
-// pixel chunks; c3_*: the 3x3's tile plan (ops/conv2.py::conv3x3_plan).
+// gemm_bm, gemm_slots: the GEMM's tile rows and its image slots (4, 16 or
+// 64; ops/dense_layer_train.py::image_plan); h1_splits, h1_chunk: the h1
+// moments' pixel chunks; c3_*: the 3x3's tile plan
+// (ops/conv2.py::conv3x3_plan).
 extern "C" int smg_dense_layer_train_fwd(bf16* buf, const bf16* w1, const float* s1,
                                          const float* bi1, const bf16* w2,
                                          const float* s2, const float* bi2, bf16* h1,
                                          float* mom, float* st2, float* h1_part, int N,
                                          int H, int W, int ld, int c_in, int ldm, int c_known,
-                                         int gemm_bm, int h1_splits, int h1_chunk,
+                                         int gemm_bm, int gemm_slots, int h1_splits, int h1_chunk,
                                          int c3_images, int c3_rows, int c3_cols, int c3_grid,
                                          int c3_smem, cudaStream_t stream) {
   const int HW = H * W, P = N * HW;
@@ -1138,8 +1166,18 @@ extern "C" int smg_dense_layer_train_fwd(bf16* buf, const bf16* w1, const float*
         buf, ld, c_known, HW, mean1, var1, ldm);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = smg::gemm_affine(gemm_bm, buf, ld, ImageAffine{mean1, var1, ldm, s1, bi1, HW, N}, w1, P,
-                         c_in, H1Epilogue{h1}, stream);
+  auto gemm = [&](auto aff) {
+    return smg::gemm_affine(gemm_bm, buf, ld, aff, w1, P, c_in, H1Epilogue{h1}, stream);
+  };
+  if (gemm_slots == 4) {
+    err = gemm(ImageAffine<4>{mean1, var1, ldm, s1, bi1, HW, N});
+  } else if (gemm_slots == 16) {
+    err = gemm(ImageAffine<16>{mean1, var1, ldm, s1, bi1, HW, N});
+  } else if (gemm_slots == 64) {
+    err = gemm(ImageAffine<64>{mean1, var1, ldm, s1, bi1, HW, N});
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   const size_t nc2 = (size_t)N * BOTTLENECK;
   h1_sums_kernel<<<dim3(N, h1_splits), 256, 0, stream>>>(h1, HW, h1_chunk, h1_part);
@@ -1157,11 +1195,12 @@ extern "C" int smg_dense_layer_train_fwd(bf16* buf, const bf16* w1, const float*
 // their stored layouts; mean1/var1 (N, ldm1), mean2/var2 (N, 128).
 // Scratch: aff1 (3, N, C_in), aff2 (3, N, 128), dc (P, 32) bf16, du2
 // (P, 128) f32, dh1 (P, 128) bf16, part_dy2 (dg tiles, 2, 128), part_dy1
-// (cdiv(P, 128), 4, 2, C_in), sums1 (2, N, C_in) and sums2 (2, N, 128)
+// (cdiv(P, dy1_rows), dy1_slots, 2, C_in), sums1 (2, N, C_in) and sums2 (2, N, 128)
 // (per-image sum du, sum du xhat), part_w1 (w1_splits, C_in, 128) and
 // part_w2 (dw_grid, 9, 128, 32) (the weight gradients' partials). Output:
 // grads, finish_kernel's [dw1 | dw2 | dscale1 | dbias1 | dscale2 | dbias2].
-// dg_*: the transposed 3x3's tile plan, dw_*: dw2's
+// dg_*: the transposed 3x3's tile plan, dw_*: dw2's, dy1_rows, dy1_slots:
+// dy1's pixels per tile and image slots (4 or 16)
 // (ops/dense_layer_train.py).
 extern "C" int smg_dense_layer_train_bwd(
     const bf16* buf, float* dbuf, const bf16* h1, const bf16* w1, const bf16* w2,
@@ -1171,15 +1210,20 @@ extern "C" int smg_dense_layer_train_bwd(
     float* sums1, float* sums2, float* part_w1, float* part_w2, float* grads, int N, int H,
     int W, int ld,
     int c_in, int dg_rows, int dg_cols, int dg_grid, int dg_smem, int dw_rows, int dw_cols,
-    int dw_grid, int dw_smem, int w1_splits, int w1_chunk, cudaStream_t stream) {
+    int dw_grid, int dw_smem, int w1_splits, int w1_chunk, int dy1_rows, int dy1_slots,
+    cudaStream_t stream) {
   const int HW = H * W, P = N * HW;
+  if ((dy1_slots != 4 && dy1_slots != 16) || dy1_rows < 1 || dy1_rows > DY_BM)
+    return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaGetLastError();
   static const cudaError_t set = [] {
     cudaError_t e = allow_smem(dy2_kernel, smg::C3_SMEM_MAX);
     if (e == cudaSuccess) e = allow_smem(dw2_kernel, smg::C3_SMEM_MAX);
     if (e == cudaSuccess) e = allow_smem(dw1_kernel, W1_STAGES * W1_STAGE_BYTES);
-    if (e == cudaSuccess) e = allow_smem(dy1_kernel<false>, DY_SMEM);
-    if (e == cudaSuccess) e = allow_smem(dy1_kernel<true>, DY_SMEM);
+    if (e == cudaSuccess) e = allow_smem(dy1_kernel<false, 4>, dy_smem<4>());
+    if (e == cudaSuccess) e = allow_smem(dy1_kernel<true, 4>, dy_smem<4>());
+    if (e == cudaSuccess) e = allow_smem(dy1_kernel<false, 16>, dy_smem<16>());
+    if (e == cudaSuccess) e = allow_smem(dy1_kernel<true, 16>, dy_smem<16>());
     return e;
   }();
   if (set != cudaSuccess) return (int)set;
@@ -1197,13 +1241,13 @@ extern "C" int smg_dense_layer_train_bwd(
   dw2_kernel<<<dw_grid, DW_THREADS, dw_smem, stream>>>(dc, h1, aff2, part_w2, N, H, W, dw);
   dw1_kernel<<<dim3(cdiv(c_in, 128), w1_splits), 256, W1_STAGES * W1_STAGE_BYTES, stream>>>(
       buf, ld, c_in, aff1, dh1, part_w1, N, HW, P, w1_chunk);
-  const dim3 tiles(cdiv(P, DY_BM), cdiv(c_in, 128));
-  dy1_kernel<false><<<tiles, 256, DY_SMEM, stream>>>(dh1, w1, buf, ld, c_in, aff1, mean1, ldm1,
-                                                     nullptr, part_dy1, nullptr, N, HW, P);
-  reduce_dy1_kernel<<<dim3(N, cdiv(2 * c_in, 256)), 256, 0, stream>>>(part_dy1, sums1, N, HW,
-                                                                      c_in);
-  dy1_kernel<true><<<tiles, 256, DY_SMEM, stream>>>(dh1, w1, buf, ld, c_in, aff1, mean1, ldm1,
-                                                    sums1, nullptr, dbuf, N, HW, P);
+  if (dy1_slots == 4) {
+    dy1_passes<4>(dh1, w1, buf, ld, c_in, aff1, mean1, ldm1, part_dy1, sums1, dbuf, N, HW, P,
+                  dy1_rows, stream);
+  } else {
+    dy1_passes<16>(dh1, w1, buf, ld, c_in, aff1, mean1, ldm1, part_dy1, sums1, dbuf, N, HW, P,
+                   dy1_rows, stream);
+  }
   const int n_grads = c_in * BOTTLENECK + W2_ELEMS + 2 * c_in + 2 * BOTTLENECK;
   finish_kernel<<<cdiv(n_grads, 256), 256, 0, stream>>>(part_w1, w1_splits, part_w2, dw_grid,
                                                         sums1, sums2, grads, N, c_in);

@@ -41,8 +41,9 @@ SIGNATURES = {
     "smg_contact_forces": [P, P, P, I, I, I, I] + [F] * 8 + [I] * 5 + [P],
     # y, a, b, out; N, H, W, C, out_ld; stream
     "smg_stem_pool": [P, P, P, P, I, I, I, I, I, P],
-    # x, a, b, wt, out; N, H, W, C, x_ld, C_out, out_ld; stream
-    "smg_transition": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # x, a, b, wt, out; N, H, W, C, x_ld, C_out, out_ld; the tile plan (5
+    # ints, transition.TransitionPlan.args); stream
+    "smg_transition": [P] * 5 + [I] * 7 + [I] * 5 + [P],
     # buf, a1, b1, w1, a2, b2, w2, h2 scratch; N, H, W, ld, C_in; the
     # GEMM's tile rows; the 3x3 plan (5 ints, conv2.Conv3x3Plan.args); stream
     "smg_dense_layer": [P] * 8 + [I] * 6 + [I] * 5 + [P],
@@ -50,19 +51,19 @@ SIGNATURES = {
     "smg_conv2_bn_relu": [P] * 5 + [I] * 4 + [I] * 5 + [P],
     # buf, a1, b1, w1, a2, b2, w2, at, bt, wt, h2 scratch, out;
     # N, H, W, C0, L, C_out, out_ld, epilogue, taps_packed; the GEMM's tile
-    # rows; the 3x3 plan; stream
-    "smg_dense_block": [P] * 12 + [I] * 10 + [I] * 5 + [P],
+    # rows; the 3x3 plan; the transition's plan (zeros for final_bn); stream
+    "smg_dense_block": [P] * 12 + [I] * 10 + [I] * 5 + [I] * 5 + [P],
     # buf, w1, s1, bi1, w2, s2, bi2, h1, block moments, st2, h1 sums
     # scratch; N, H, W, ld, C_in, the moments' row stride, channels with
-    # moments already; the GEMM's tile rows; the h1 moments' splits and
-    # chunk; the 3x3 plan; stream
-    "smg_dense_layer_train_fwd": [P] * 11 + [I] * 8 + [I] * 2 + [I] * 5 + [P],
+    # moments already; the GEMM's tile rows and image slots; the h1
+    # moments' splits and chunk; the 3x3 plan; stream
+    "smg_dense_layer_train_fwd": [P] * 11 + [I] * 9 + [I] * 2 + [I] * 5 + [P],
     # buf, dbuf, h1, w1, w2, s1, bi1, mean1, var1; mean1's row stride; s2,
     # bi2, mean2, var2, aff1, aff2, dc, du2, dh1, part_dy2, part_dy1, sums1,
     # sums2, part_w1, part_w2, grads; N, H, W, ld, C_in; the dy2 and dw2
     # plans (4 ints each, dense_layer_train.TilePlan.args); dw1's splits,
-    # chunk; stream
-    "smg_dense_layer_train_bwd": [P] * 9 + [I] + [P] * 16 + [I] * 5 + [I] * 8 + [I] * 2 + [P],
+    # chunk; dy1's tile rows and image slots; stream
+    "smg_dense_layer_train_bwd": [P] * 9 + [I] + [P] * 16 + [I] * 5 + [I] * 8 + [I] * 4 + [P],
 }
 
 
@@ -183,6 +184,13 @@ def check_aligned(**tensors) -> None:
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+
+
+def check_int32(name: str, count: int) -> None:
+    """The kernels index elements with 32-bit ints: an operand's extent in
+    elements must stay below 2^31."""
+    if count >= 2 ** 31:
+        raise ValueError(f"{name}: {count} elements; the kernels take fewer than 2^31")
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype, shape=None,

@@ -32,6 +32,7 @@ import torch
 from smg_tpu_torch.ops import _build
 from smg_tpu_torch.ops.conv2 import BOTTLENECK, GROWTH, N_TAPS, conv3x3_plain, conv3x3_plan
 from smg_tpu_torch.ops.dense_layer import gemm_rows
+from smg_tpu_torch.ops.transition import transition_plan
 
 launches = 0
 
@@ -130,13 +131,16 @@ def dense_block_apply(buf, packed, ep, epilogue: str, *, taps_packed: bool = Tru
         if H % 2 or W % 2 or C_out % 128:
             raise ValueError(f"unsupported transition {tuple(buf.shape)} -> {C_out}")
         out_shape, wt_ptr, code = (N, H // 2, W // 2, C_out), ep["wt"].data_ptr(), 0
+        tr = transition_plan(N * (H // 2) * (W // 2), Cf, C_out,
+                             _build.sm_count(buf.device)).args()
     else:
         C_out = Cf
-        out_shape, wt_ptr, code = (N, H, W, Cf), 0, 1
+        out_shape, wt_ptr, code, tr = (N, H, W, Cf), 0, 1, (0,) * 5
     if out is None:
         out = torch.empty(out_shape, dtype=torch.bfloat16, device=buf.device)
     out_ld = _build.check_nhwc_view(out, "out", torch.bfloat16, out_shape)
-    _build.check_aligned(buf=buf, **{k: packed[k] for k in ("a1", "b1", "w1", "w2")})
+    _build.check_aligned(buf=buf, at=ep["at"], bt=ep["bt"],
+                         **{k: packed[k] for k in ("a1", "b1", "w1", "w2")})
     h2 = torch.empty((N * H * W, BOTTLENECK), dtype=torch.bfloat16, device=buf.device)
     sms = _build.sm_count(buf.device)
     _build.launch("smg_dense_block", buf.data_ptr(), packed["a1"].data_ptr(),
@@ -145,6 +149,6 @@ def dense_block_apply(buf, packed, ep, epilogue: str, *, taps_packed: bool = Tru
                   packed["w2"].data_ptr(), ep["at"].data_ptr(), ep["bt"].data_ptr(),
                   wt_ptr, h2.data_ptr(), out.data_ptr(), N, H, W, c0, L, C_out,
                   out_ld, code, int(taps_packed), gemm_rows(N * H * W, sms),
-                  *conv3x3_plan(N, H, W, sms).args())
+                  *conv3x3_plan(N, H, W, sms).args(), *tr)
     launches += 1
     return out

@@ -138,9 +138,11 @@ def layer_bwd_plain(buf, dbuf, c_in, h1, w1, w2, s1, bi1, s2, bi2, m1, v1, m2, v
 
 
 # The kernels' tile geometry (csrc/dense_layer_train.cu).
-SLOTS = 4                     # images a 128-pixel tile may span
-MIN_PIXELS = 43               # H W at which a 128-pixel tile spans at most SLOTS images
-DY1_ROWS = 128                # dy1_kernel's tile: 128 pixels x 128 channels
+SLOT_COUNTS = (4, 16, 64)     # image slots a tile's per-image table may have (instantiated)
+DY1_ROWS = 128                # dy1_kernel's tile: up to 128 pixels x 128 channels
+GEMM_BK = 64                  # K6a's GEMM (common.cuh gemm_bnrelu_kernel): k-slice,
+GEMM_STAGES = 3               # ring stages
+DY1_TAB = 6                   # dy1_kernel's per-(slot, channel) values
 W2_BYTES = N_TAPS * BOTTLENECK * GROWTH * 2   # the resident tap weights
 DOUT_PX_BYTES = GROWTH * 2    # a pixel of the compact bf16 dout
 DW1_STAGE_PIXELS = 64         # dw1_kernel's staged pixels
@@ -250,6 +252,61 @@ def dw1_split(P: int, c_in: int, sms: int = H100_SMS):
     return _cdiv(P, chunk), chunk
 
 
+def span(rows: int, HW: int) -> int:
+    """The most images that a run of `rows` consecutive pixels of images of
+    HW pixels each can touch."""
+    return min(rows, _cdiv(rows - 1, HW) + 1)
+
+
+def gemm_smem(bm: int, slots: int) -> int:
+    """K6a's GEMM's shared memory (common.cuh::gemmn_smem_bytes): per ring
+    stage the x and w1 tiles of a 64-deep k-slice and that slice's (a, b)
+    for each image slot."""
+    return GEMM_STAGES * (bm * GEMM_BK * 2 + GEMM_BK * BOTTLENECK * 2 + slots * 2 * GEMM_BK * 4)
+
+
+def dy1_smem(slots: int) -> int:
+    """dy1_kernel's shared memory: its dh1, w1 and x tiles (128 x 128 bf16
+    each) and six values per slot and channel."""
+    return 3 * DY1_ROWS * BOTTLENECK * 2 + DY1_TAB * slots * BOTTLENECK * 4
+
+
+def _slots(images, smem):
+    """The fewest instantiated slots that hold `images` and fit, or None."""
+    return next((s for s in SLOT_COUNTS if s >= images and smem(s) <= C3_SMEM_LIMIT), None)
+
+
+class ImagePlan(NamedTuple):
+    """The pixel tiles that may span several images, each with a table of
+    per-image values, one slot per image: K6a's GEMM (tiles of `gemm_rows`
+    pixels, `gemm_slots` slots) and dy1 (`dy1_rows` pixels of its 128-row
+    tile, `dy1_slots` slots)."""
+    gemm_rows: int
+    gemm_slots: int
+    dy1_rows: int
+    dy1_slots: int
+
+
+@functools.lru_cache(maxsize=None)
+def image_plan(N: int, HW: int, sms: int = H100_SMS) -> ImagePlan:
+    """Tile rows and slot counts for N images of HW pixels. A run of r pixels
+    spans up to cdiv(r - 1, HW) + 1 images: 4 for 128 rows where HW >= 43
+    (the training path at 224), up to 128 for 1-pixel images. The GEMM
+    keeps K2's tile rows (gemm_rows) where their slots fit its shared
+    memory, else takes 64-row tiles (64 slots at most); dy1 takes the
+    longest power-of-two run up to 128 rows whose slots fit (16 rows of
+    1-pixel images). Memoized per shape."""
+    bm = gemm_rows(N * HW, sms)
+    slots = _slots(span(bm, HW), lambda s: gemm_smem(bm, s))
+    if slots is None:
+        bm = 64
+        slots = _slots(span(bm, HW), lambda s: gemm_smem(bm, s))
+    rows = DY1_ROWS
+    while _slots(span(rows, HW), dy1_smem) is None:
+        rows //= 2
+    return ImagePlan(bm, slots, rows, _slots(span(rows, HW), dy1_smem))
+
+
 def _check_layer(buf, c_in, w1, s1, bi1, w2, s2, bi2):
     ld = buf.shape[-1]
     _build.check_cuda(buf, "buf", torch.bfloat16)
@@ -261,9 +318,7 @@ def _check_layer(buf, c_in, w1, s1, bi1, w2, s2, bi2):
     _build.check_cuda(bi2, "bi2", torch.float32, (BOTTLENECK,))
     if c_in % 32 or c_in + GROWTH > ld or ld % 8 or buf.dim() != 4:
         raise ValueError(f"unsupported layer: C_in {c_in}, buffer {tuple(buf.shape)}")
-    if buf.shape[1] * buf.shape[2] < MIN_PIXELS:
-        raise ValueError(f"K6 on the card needs images of at least {MIN_PIXELS} "
-                         f"pixels, got {tuple(buf.shape[1:3])}")
+    _build.check_int32("buf", buf.shape[0] * buf.shape[1] * buf.shape[2] * max(ld, BOTTLENECK))
     _build.check_aligned(buf=buf, w1=w1, w2=w2)
 
 
@@ -290,7 +345,7 @@ def layer_fwd(buf, c_in: int, w1, s1, bi1, w2, s2, bi2, moments=None, known: int
     written); the layer adds [known, C_in) and returns views of it. Without
     it the layer computes all C_in. The CPU takes the plain version.
     On the card buf and the weights are bf16, C_in is a multiple of 32 and
-    an image has at least MIN_PIXELS pixels.
+    N H W max(ld, 128) is below 2^31 (the kernels' 32-bit indices).
     """
     global fwd_launches
     if buf.device.type == "cpu":
@@ -308,13 +363,14 @@ def layer_fwd(buf, c_in: int, w1, s1, bi1, w2, s2, bi2, moments=None, known: int
     h1 = torch.empty((N, H, W, BOTTLENECK), dtype=torch.bfloat16, device=dev)
     st2 = torch.empty((4, N, BOTTLENECK), dtype=torch.float32, device=dev)
     sms = _build.sm_count(dev)
+    ip = image_plan(N, H * W, sms)
     splits, chunk = h1_chunks(N, H * W, sms)
     h1_part = torch.empty((N, splits, 2, BOTTLENECK), dtype=torch.float32, device=dev)
     _build.launch("smg_dense_layer_train_fwd", buf.data_ptr(), w1.data_ptr(),
                   s1.data_ptr(), bi1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
                   bi2.data_ptr(), h1.data_ptr(), moments.data_ptr(), st2.data_ptr(),
                   h1_part.data_ptr(), N, H, W, ld, c_in, moments.shape[2], known,
-                  gemm_rows(N * H * W, sms), splits, chunk,
+                  ip.gemm_rows, ip.gemm_slots, splits, chunk,
                   *conv3x3_plan(N, H, W, sms).args())
     fwd_launches += 1
     return h1, moments[0, :, :c_in], moments[1, :, :c_in], st2[0], st2[1]
@@ -363,6 +419,7 @@ def layer_bwd(buf, dbuf, c_in: int, h1, w1, w2, s1, bi1, s2, bi2, m1, v1, m2, v2
     dev, P = buf.device, N * H * W
     sms = _build.sm_count(dev)
     dg, dw = dgrad_plan(N, H, W, sms), dw2_plan(N, H, W, sms)
+    ip = image_plan(N, H * W, sms)
     splits, chunk = dw1_split(P, c_in, sms)
     sc = scratch if scratch is not None else Scratch(dev)
     bf = torch.bfloat16
@@ -372,7 +429,7 @@ def layer_bwd(buf, dbuf, c_in: int, h1, w1, w2, s1, bi1, s2, bi2, m1, v1, m2, v2
     du2 = sc.get("du2", (P, BOTTLENECK))
     dh1 = sc.get("dh1", (P, BOTTLENECK), bf)
     part_dy2 = sc.get("part_dy2", (dg.tiles, 2, BOTTLENECK))
-    part_dy1 = sc.get("part_dy1", (_cdiv(P, DY1_ROWS), SLOTS, 2, c_in))
+    part_dy1 = sc.get("part_dy1", (_cdiv(P, ip.dy1_rows), ip.dy1_slots, 2, c_in))
     sums1 = sc.get("sums1", (2, N, c_in))
     sums2 = sc.get("sums2", (2, N, BOTTLENECK))
     part_w1 = sc.get("part_w1", (splits, c_in, BOTTLENECK))
@@ -387,7 +444,7 @@ def layer_bwd(buf, dbuf, c_in: int, h1, w1, w2, s1, bi1, s2, bi2, m1, v1, m2, v2
                   part_dy2.data_ptr(), part_dy1.data_ptr(), sums1.data_ptr(),
                   sums2.data_ptr(), part_w1.data_ptr(), part_w2.data_ptr(),
                   grads.data_ptr(), N, H, W, ld, c_in, *dg.args(), *dw.args(), splits,
-                  chunk)
+                  chunk, ip.dy1_rows, ip.dy1_slots)
     bwd_launches += 1
     dw1, dw2, bn1, bn2 = grads.split((n1, n2, 2 * c_in, 2 * BOTTLENECK))
     return (dw1.view(c_in, BOTTLENECK), dw2.view(N_TAPS, BOTTLENECK, GROWTH),

@@ -75,10 +75,7 @@ def _port_fwd(x, p, C, dtype):
     return buf, h1, (m1, v1, m2, v2)
 
 
-@pytest.mark.parametrize("cs", [(64,), (128, 96), (128, 128)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("HW", [12, 7])
-def test_fwd_matches_pallas(cs, dtype, HW):
+def _check_fwd(cs, dtype, HW):
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     C = sum(cs)
     x, p = _case(HW * 100 + C, 1, HW, cs, dtype)
@@ -95,6 +92,13 @@ def test_fwd_matches_pallas(cs, dtype, HW):
     # The prefix is left as it was.
     assert torch.equal(buf[..., :C].float(),
                        torch.tensor(x).to(buf.dtype).float())
+
+
+@pytest.mark.parametrize("cs", [(64,), (128, 96), (128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("HW", [12, 7])
+def test_fwd_matches_pallas(cs, dtype, HW):
+    _check_fwd(cs, dtype, HW)
 
 
 def _port_grads(x, p, C):
@@ -121,9 +125,7 @@ def _jax_grads(fn, x, p, cs):
              gp["norm2"]["scale"], gp["norm2"]["bias"]])
 
 
-@pytest.mark.parametrize("cs", [(64,), (128, 96), (128, 128)])
-@pytest.mark.parametrize("HW", [12, 7])
-def test_bwd_matches_pallas_and_vjp(cs, HW):
+def _check_bwd(cs, HW):
     C = sum(cs)
     x, p = _case(HW * 100 + C + 1, 1, HW, cs, "float32")
     gx, gps = _port_grads(x, p, C)
@@ -132,6 +134,23 @@ def test_bwd_matches_pallas_and_vjp(cs, HW):
         assert _rel_l2(gx, wx) < 1e-4, fn.__name__
         for i, (g, w) in enumerate(zip(gps, wps)):
             assert _rel_l2(g, w) < 1e-4, (fn.__name__, i, _rel_l2(g, w))
+
+
+@pytest.mark.parametrize("cs", [(64,), (128, 96), (128, 128)])
+@pytest.mark.parametrize("HW", [12, 7])
+def test_bwd_matches_pallas_and_vjp(cs, HW):
+    _check_bwd(cs, HW)
+
+
+@pytest.mark.parametrize("cs", [(64,), (128, 96)])
+@pytest.mark.parametrize("HW", [6, 2])
+def test_small_images_match_pallas(cs, HW):
+    """Images under 43 pixels (6 x 6: a 128-pixel tile of the card's K6
+    spans 5 images; 2 x 2: 33), which the reference's 'pk' path runs too:
+    forward in float32 and bf16, backward in float32, at the bounds above."""
+    for dtype in ("float32", "bfloat16"):
+        _check_fwd(cs, dtype, HW)
+    _check_bwd(cs, HW)
 
 
 def test_images_keep_their_own_statistics():

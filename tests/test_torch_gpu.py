@@ -28,6 +28,11 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
+def _affine(g, dev, c):
+    return (torch.rand(c, generator=g, device=dev) + 0.5,
+            torch.rand(c, generator=g, device=dev) * 0.6 - 0.2)
+
+
 def _rel(got, want):
     return float((got.float() - want.float()).abs().max()
                  / want.float().abs().max().clamp(min=1e-6))
@@ -185,20 +190,51 @@ def test_dense_block_tilings(dev, N, H, W, epilogue, taps_packed):
     assert _rel(got, want) <= TOL_BF16
 
 
-@pytest.mark.parametrize("H,C", [(4, 256), (6, 512), (2, 1024)])
-def test_transition(dev, H, C):
+# K3's shapes: (N, H, W, C) with Q = N H W / 4 pooled pixels a multiple of
+# no tile (128, 64, 32 rows), one block and many, each of the kernel's three
+# tiles (ops/transition.py::transition_plan): 128 x 128 at 22 x 56 x 56 x
+# 256, 64 x 256 at 44 x 28 x 28 x 512, 32 x 512 elsewhere; C = 96 pads the
+# pooled tile to 128 columns.
+K3_SHAPES = [(3, 4, 4, 256), (3, 6, 6, 512), (3, 2, 2, 1024), (22, 56, 56, 256),
+             (44, 28, 28, 512), (5, 10, 10, 1024), (5, 10, 6, 96)]
+
+
+def _k3_operands(g, dev, N, H, W, C, C_out):
+    x = torch.randn((N, H, W, C), generator=g, device=dev).to(torch.bfloat16)
+    a, b = _affine(g, dev, C)
+    wt = (torch.randn((C, C_out), generator=g, device=dev) * C ** -0.5).to(torch.bfloat16)
+    return x, a, b, wt
+
+
+@pytest.mark.parametrize("N,H,W,C", K3_SHAPES)
+def test_transition(dev, N, H, W, C):
+    """K3 against its plain version, written into a channel slice of a wider
+    buffer whose other channels stay untouched."""
+    from smg_tpu_torch.ops import _build
     from smg_tpu_torch.ops import transition as k3
 
-    g = _gen(dev, C)
-    x = torch.randn((3, H, H, C), generator=g, device=dev).to(torch.bfloat16)
-    a = torch.rand(C, generator=g, device=dev) + 0.5
-    b = torch.rand(C, generator=g, device=dev) * 0.6 - 0.2
-    wt = (torch.randn((C, C // 2), generator=g, device=dev) * C ** -0.5).to(
-        torch.bfloat16)
-    out = torch.zeros((3, H // 2, H // 2, C), dtype=torch.bfloat16, device=dev)
-    k3.transition(x, a, b, wt, out=out[..., :C // 2])
-    assert _rel(out[..., :C // 2], k3.transition_plain(x, a, b, wt)) <= TOL_BF16
-    assert not out[..., C // 2:].any()      # the view's other channels untouched
+    C_out = max(128, C // 2)
+    g = _gen(dev, N * C + H)
+    x, a, b, wt = _k3_operands(g, dev, N, H, W, C, C_out)
+    plan = k3.transition_plan(N * H * W // 4, C, C_out, _build.sm_count(dev))
+    assert plan.grid == -(-N * H * W // 4 // plan.rows)
+    out = torch.zeros((N, H // 2, W // 2, C_out + 64), dtype=torch.bfloat16, device=dev)
+    before = k3.launches
+    k3.transition(x, a, b, wt, out=out[..., :C_out])
+    assert k3.launches == before + 1
+    assert _rel(out[..., :C_out], k3.transition_plain(x, a, b, wt)) <= TOL_BF16
+    assert not out[..., C_out:].any()      # the view's other channels untouched
+
+
+@pytest.mark.parametrize("N,H,W,C", K3_SHAPES[3:])
+def test_transition_repeatable(dev, N, H, W, C):
+    """K3 twice on the same input gives the same bits (each output's k-sum
+    in one fixed order)."""
+    from smg_tpu_torch.ops import transition as k3
+
+    x, a, b, wt = _k3_operands(_gen(dev, C + 1), dev, N, H, W, C, max(128, C // 2))
+    first = k3.transition(x, a, b, wt)
+    assert torch.equal(first, k3.transition(x, a, b, wt))
 
 
 @pytest.mark.parametrize("H", [9, 16])
@@ -213,9 +249,6 @@ def test_stem_pool(dev, H):
     assert torch.equal(got, k4.bn_relu_maxpool_plain(y, a, b))
 
 
-def _affine(g, dev, c):
-    return (torch.rand(c, generator=g, device=dev) + 0.5,
-            torch.rand(c, generator=g, device=dev) * 0.6 - 0.2)
 
 
 @pytest.mark.parametrize("H,W,ld,c_off", [(7, 7, 160, 96), (8, 12, 128, 64),
@@ -282,6 +315,36 @@ def test_dense_block(dev, H, W, C0, L, epilogue, taps_packed):
     assert _rel(buf[..., C0:], ref[..., C0:]) <= TOL_BF16
     assert _rel(got, want) <= TOL_BF16
     assert not nxt[..., out_shape[3]:].any()
+
+
+@pytest.mark.parametrize("N,H,W,C0,L", [(5, 10, 10, 192, 2), (5, 10, 6, 448, 2),
+                                        (3, 6, 6, 960, 2), (44, 28, 28, 448, 2)])
+def test_dense_block_transition(dev, N, H, W, C0, L):
+    """K7's transition epilogue (K3's kernel with the bf16-arithmetic pool)
+    at 256, 512 and 1024 channels, Q a multiple of no tile, written into a
+    channel slice whose other channels stay untouched."""
+    from smg_tpu_torch.ops import dense_block as k7
+
+    g = _gen(dev, N + H + C0)
+    bf = torch.bfloat16
+    layers = [(c,) + _affine(g, dev, c)
+              + ((torch.randn((c, 128), generator=g, device=dev) * c ** -0.5).to(bf),)
+              + _affine(g, dev, 128)
+              + ((torch.randn((9, 128, 32), generator=g, device=dev) * 0.03).to(bf),)
+              for c in (C0 + 32 * l for l in range(L))]
+    Cf = C0 + 32 * L
+    at, bt = _affine(g, dev, Cf)
+    wt = (torch.randn((Cf, Cf // 2), generator=g, device=dev) * Cf ** -0.5).to(bf)
+    ep = k7.pack_transition(at, bt, wt)
+    packed = k7.pack_dense_block(layers)
+    buf = torch.randn((N, H, W, Cf), generator=g, device=dev).to(bf)
+    ref = buf.clone()
+    nxt = torch.zeros((N, H // 2, W // 2, Cf // 2 + 32), dtype=bf, device=dev)
+    got = k7.dense_block_apply(buf, packed, ep, "transition", out=nxt[..., :Cf // 2])
+    want = k7.dense_block_apply_plain(ref, packed, ep, "transition")
+    assert _rel(buf[..., C0:], ref[..., C0:]) <= TOL_BF16
+    assert _rel(got, want) <= TOL_BF16
+    assert not nxt[..., Cf // 2:].any()
 
 
 def _rel_l2(got, want):
@@ -351,6 +414,50 @@ def test_dense_layer_train(dev, H, C_in, n):
         assert _rel(got, want) <= 1e-4
 
 
+@pytest.mark.parametrize("H,C_in,n", [(6, 64, 5), (6, 224, 64), (3, 96, 5), (3, 64, 64),
+                                      (2, 96, 5), (1, 64, 5), (1, 224, 64)])
+def test_dense_layer_train_small_images(dev, H, C_in, n):
+    """K6 at images under 43 pixels, where a 128-pixel tile spans 5 (6 x 6)
+    up to 128 (1 x 1) images: the GEMM's and dy1's image slots (16, 64) and
+    dy1's shorter tiles (ops/dense_layer_train.py::image_plan)."""
+    moms, rmoms = _check_dense_layer_train(dev, H, C_in, n)
+    for got, want in zip(moms[:2], rmoms[:2]):
+        assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("H", [6, 3, 1])
+def test_dense_block_train_small_images(dev, H):
+    """A whole dense block through K6 (autograd Function: K6a layer by
+    layer, K6b in reverse) at 6 x 6, 3 x 3 and 1 x 1 images against the same
+    walk through K6b's plain version from the same forward."""
+    from smg_tpu_torch.ops import dense_layer_train as k6
+
+    g = _gen(dev, 100 + H)
+    bf, N, C0, L = torch.bfloat16, 40, 64, 3
+    x0 = torch.randn((N, H, H, C0), generator=g, device=dev).to(bf).requires_grad_(True)
+    layers = [[t.float().requires_grad_(True) for t in _k6_operands(dev, g, C0 + 32 * l)]
+              for l in range(L)]
+    buf, _ = k6.dense_block_train(x0, layers)
+    dout = torch.randn(buf.shape, generator=g, device=dev).to(bf)
+    buf.backward(dout)
+    with torch.no_grad():
+        # K6a layer by layer again (the same bits), then K6b's plain version.
+        ref = torch.empty_like(buf)
+        ref[..., :C0] = x0
+        saved = [k6.layer_fwd(ref, C0 + 32 * l, w1.to(bf), s1, b1, w2.to(bf), s2, b2)
+                 for l, (w1, s1, b1, w2, s2, b2) in enumerate(layers)]
+        assert torch.equal(ref, buf)
+        dbuf = dout.float()
+        for l in reversed(range(L)):
+            w1, s1, b1, w2, s2, b2 = layers[l]
+            dw1, dw2, ds1, db1, ds2, db2 = k6.layer_bwd_plain(
+                ref, dbuf, C0 + 32 * l, saved[l][0], w1.to(bf), w2.to(bf), s1, b1, s2, b2,
+                *saved[l][1:])
+            for p, w in zip((w1, s1, b1, w2, s2, b2), (dw1, ds1, db1, dw2, ds2, db2)):
+                assert _rel_l2(p.grad, w) < 1e-2
+        assert _rel_l2(x0.grad, dbuf[..., :C0]) < 1e-2
+
+
 @pytest.mark.parametrize("C_in", [64, 96, 992])
 def test_dense_layer_train_tile_edges(dev, C_in):
     """At 5 images of 7 x 7, 128-pixel tiles span up to four images and
@@ -418,6 +525,17 @@ def test_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError):                   # no room for the 32 channels
         k6.layer_fwd(torch.zeros((1, 7, 7, 64), device=dev, dtype=torch.bfloat16),
                      64, *ops)
-    with pytest.raises(ValueError):                   # a tile would span 5+ images
-        k6.layer_fwd(torch.zeros((1, 6, 6, 96), device=dev, dtype=torch.bfloat16),
-                     64, *ops)
+    # Images under 43 pixels (a 128-pixel tile spans 5 or more) run and
+    # match the plain version.
+    buf = torch.randn((1, 6, 6, 96), generator=_gen(dev, 2), device=dev).to(torch.bfloat16)
+    ref = buf.clone()
+    k6.layer_fwd(buf, 64, *ops)
+    k6.layer_fwd_plain(ref, 64, *ops)
+    assert _rel(buf[..., 64:], ref[..., 64:]) <= TOL_BF16
+    from smg_tpu_torch.ops import transition as k3
+
+    a, b = _affine(_gen(dev, 3), dev, 1024)
+    wt = torch.zeros((1024, 512), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                   # 2^31 elements: past 32-bit indices
+        k3.transition(torch.empty((1, 2, 2 ** 20, 1024), device=dev, dtype=torch.bfloat16),
+                      a, b, wt)

@@ -1,10 +1,11 @@
 """The CUDA kernels' tile plans, which the wrappers compute in Python and
 pass to the kernels as ints: K1's (ops/contact.py::contact_plan), the
 shared 3x3's (ops/conv2.py::conv3x3_plan, used by K2, K5, K6a and K7), K2's
-GEMM tile rows, and K6b's (ops/dense_layer_train.py: dgrad_plan, dw2_plan,
-dw1_split, and the 128-pixel tiles of dy1 and K6a's GEMM with their image
-slots). Checked on the CPU at every shape the port's paths and its card
-tests give them. No JAX.
+GEMM tile rows, K3's (ops/transition.py::transition_plan, also K7's
+transition epilogue), and K6's (ops/dense_layer_train.py: dgrad_plan,
+dw2_plan, dw1_split, and image_plan: the pixel tiles of dy1 and K6a's GEMM
+with their image slots). Checked on the CPU at every shape the port's paths
+and its card tests give them. No JAX.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 
 from smg_tpu_torch.ops import contact, conv2, dense_layer
 from smg_tpu_torch.ops import dense_layer_train as k6
+from smg_tpu_torch.ops import transition as k3
 
 SMS = conv2.H100_SMS
 SMEM_227KB = 232448
@@ -134,6 +136,8 @@ def test_gemm_rows():
     (k6.dw2_plan, (64, 7, 7, SMS)),
     (k6.dw1_split, (64 * 14 * 14, 512, SMS)),
     (k6.h1_chunks, (64, 56 * 56, SMS)),
+    (k6.image_plan, (64, 6 * 6, SMS)),
+    (k3.transition_plan, (104 * 28 * 28, 256, 128, SMS)),
 ])
 def test_plans_are_memoized(plan, args):
     """A wrapper asks for its plan on every launch: the search runs once
@@ -154,8 +158,16 @@ K6_CARD = [(n, H, H, c) for n, H, c in (
     (1, 7, 64), (5, 7, 224), (5, 14, 64), (1, 14, 224),          # test_dense_layer_train
     (5, 7, 64), (5, 7, 96), (5, 7, 992),                          # the tile edges
     (1, 7, 96), (64, 7, 96), (1, 14, 96), (64, 14, 96), (1, 56, 96), (5, 56, 96),
-    (64, 56, 96), (5, 14, 96))]                                   # repeatability
-K6_SHAPES = K6_PATH + K6_CARD
+    (64, 56, 96), (5, 14, 96),                                    # repeatability
+    (5, 6, 64), (64, 6, 224), (5, 3, 96), (64, 3, 64), (5, 2, 96), (5, 1, 64),
+    (64, 1, 224), (40, 6, 128), (40, 3, 128), (40, 1, 128),       # images under 43 pixels
+    (1, 6, 64))]                                                  # the wrappers' test
+# K6 at 640 (chip_smoke.py): one 64-image style group, the four blocks'
+# first and last layers; and a 6 x 6 block 4 (input 192).
+K6_640 = [(64, H, H, c) for H, C0, L in ((160, 64, 6), (80, 128, 12), (40, 256, 24),
+                                         (20, 512, 16), (6, 512, 16))
+          for c in (C0, C0 + 32 * (L - 1))]
+K6_SHAPES = K6_PATH + K6_CARD + K6_640
 K6_IMAGES = sorted({s[:3] for s in K6_SHAPES})
 
 
@@ -195,34 +207,90 @@ def test_k6b_image_tiles(plan_fn, smem_fn, shape):
 @pytest.mark.parametrize("shape", K6_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_k6_pixel_tiles(shape):
     """h1's moment chunks and dw1's splits cover every pixel once (dw1's
-    in 64-pixel stages); a 128-pixel
-    tile of dy1 and of K6a's GEMM (its tile rows) spans at most SLOTS
-    images; the reduction of dy1's partials reads, for each image, exactly
-    the (tile, slot) pairs the tiles write."""
+    in 64-pixel stages); a tile of K6a's GEMM and of dy1 (image_plan's rows)
+    spans at most its image slots, which fit shared memory; the reduction
+    of dy1's partials reads, for each image, exactly the (tile, slot) pairs
+    the tiles write; the buffer stays inside 32-bit indices."""
     N, H, W, C = shape
     HW, P = H * W, N * H * W
-    assert HW >= k6.MIN_PIXELS
     h1_splits, h1_chunk = k6.h1_chunks(N, HW, SMS)
     assert (h1_splits - 1) * h1_chunk < HW <= h1_splits * h1_chunk
     splits, chunk = k6.dw1_split(P, C, SMS)
     assert chunk % k6.DW1_STAGE_PIXELS == 0 and (splits - 1) * chunk < P <= splits * chunk
     if P >= 2 * SMS * k6.DW1_STAGE_PIXELS:
         assert -(-C // 128) * splits >= SMS
-    for bm in (dense_layer.gemm_rows(P, SMS), k6.DY1_ROWS):
+    plan = k6.image_plan(N, HW, SMS)
+    assert plan.gemm_slots in k6.SLOT_COUNTS and plan.dy1_slots in k6.SLOT_COUNTS
+    assert k6.gemm_smem(plan.gemm_rows, plan.gemm_slots) <= SMEM_227KB
+    assert k6.dy1_smem(plan.dy1_slots) <= SMEM_227KB
+    assert plan.gemm_rows in (128, 64) and 1 <= plan.dy1_rows <= k6.DY1_ROWS
+    if HW >= 43:   # the training path at 224: K2's tile rows, 4 slots, 128-pixel dy1 tiles
+        assert plan == (dense_layer.gemm_rows(P, SMS), 4, 128, 4)
+    for bm, slots in ((plan.gemm_rows, plan.gemm_slots), (plan.dy1_rows, plan.dy1_slots)):
         for m0 in range(0, P, bm):
             rows = min(bm, P - m0)
-            assert (m0 + rows - 1) // HW - m0 // HW < k6.SLOTS
-    tiles = -(-P // k6.DY1_ROWS)
-    written = {(t, n - t * k6.DY1_ROWS // HW)
+            assert (m0 + rows - 1) // HW - m0 // HW < slots
+    tr = plan.dy1_rows
+    tiles = -(-P // tr)
+    written = {(t, n - t * tr // HW)
                for t in range(tiles)
-               for n in range(t * k6.DY1_ROWS // HW,
-                              (min(P, (t + 1) * k6.DY1_ROWS) - 1) // HW + 1)}
-    read = {(t, n - t * k6.DY1_ROWS // HW) for n in range(N)
-            for t in range(n * HW // k6.DY1_ROWS, ((n + 1) * HW - 1) // k6.DY1_ROWS + 1)}
+               for n in range(t * tr // HW, (min(P, (t + 1) * tr) - 1) // HW + 1)}
+    read = {(t, n - t * tr // HW) for n in range(N)
+            for t in range(n * HW // tr, ((n + 1) * HW - 1) // tr + 1)}
     assert read == written
-    assert all(0 <= j < k6.SLOTS for _, j in written)
-    part = (tiles, k6.SLOTS, 2, C)
-    assert np.prod(part) < 2 ** 31
+    assert all(0 <= j < plan.dy1_slots for _, j in written)
+    assert P * max(C + 32, 128) < 2 ** 31
+
+
+@pytest.mark.parametrize("HW,plan", [(36, (64, 4, 128, 16)), (9, (64, 16, 128, 16)),
+                                     (4, (64, 64, 32, 16)), (1, (64, 64, 16, 16))])
+def test_k6_image_plan_small_images(HW, plan):
+    """The choice for images under 43 pixels at 64 images (6 x 6, 3 x 3,
+    2 x 2, 1 x 1): 64-row GEMM tiles with 4, 16 or 64 slots; dy1 on 128-,
+    32- or 16-pixel tiles with 16 slots (its 3 x 32 KB tiles leave room for
+    no more)."""
+    assert tuple(k6.image_plan(64, HW, SMS)) == plan
+
+
+# K3 on the paths: the three transitions of one 104-image trunk pass at 224
+# and 640 (and K7's transition epilogue at the same shapes); the card tests'
+# shapes (test_transition, test_dense_block_transition, the K7 tests).
+K3_PATH = [(104 * (s // (8 << i)) ** 2, 256 << i, 128 << i) for s in (224, 640)
+           for i in range(3)]
+K3_CARD = [(N * H * W // 4, C, max(128, C // 2)) for N, H, W, C in (
+    (3, 4, 4, 256), (3, 6, 6, 512), (3, 2, 2, 1024), (22, 56, 56, 256), (44, 28, 28, 512),
+    (5, 10, 10, 1024), (5, 10, 6, 96), (5, 10, 6, 512), (3, 6, 6, 1024), (2, 8, 6, 128),
+    (48, 26, 26, 128))]
+
+
+@pytest.mark.parametrize("shape", K3_PATH + K3_CARD, ids=lambda s: "x".join(map(str, s)))
+def test_transition_plan(shape):
+    """K3's blocks cover every pooled pixel once (block b: pixels
+    [b rows, (b + 1) rows)); the pooled tile and the ring fit shared memory;
+    at least one block per SM wherever the smallest tile gives as many; the
+    pool stage's channels divide C and its 16 KB hold whole pooled pixels."""
+    Q, C, C_out = shape
+    plan = k3.transition_plan(Q, C, C_out, SMS)
+    assert (plan.rows, plan.cols) in k3.TR_TILES
+    assert (plan.grid - 1) * plan.rows < Q <= plan.grid * plan.rows
+    assert plan.smem_bytes == k3.transition_smem(plan.rows, C) <= SMEM_227KB
+    if -(-Q // 32) >= SMS:
+        assert plan.grid >= SMS
+    assert C % plan.kc == 0 and k3.POOL_STAGE_VALUES % plan.kc == 0
+
+
+@pytest.mark.parametrize("shape,tile", [
+    (K3_PATH[0], (128, 128)), (K3_PATH[1], (64, 256)), (K3_PATH[2], (32, 512)),
+    (K3_PATH[3], (128, 128)), (K3_PATH[4], (64, 256)), (K3_PATH[5], (32, 512))])
+def test_transition_plan_on_the_paths(shape, tile):
+    """At 224 and 640 with 104 images each transition pools a 64 KB tile
+    (128 x 256, 64 x 512, 32 x 1024) and multiplies all of C_out in one
+    pass, two blocks per SM (112 KB each), at least 132 blocks."""
+    plan = k3.transition_plan(*shape, SMS)
+    assert (plan.rows, plan.cols) == tile
+    assert plan.cols == shape[2] and plan.grid >= SMS
+    assert 2 * (plan.smem_bytes + k3.BLOCK_RESERVED) <= k3.SM_SMEM
+    assert plan.rows * shape[1] * 2 == 65536
 
 
 def test_block_moments_keep_their_bits():
