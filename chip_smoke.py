@@ -48,12 +48,27 @@
    launch count; then one 104-image
    trunk pass per backend and size, timed, its features within 5% of the
    oracle's largest |value|.
-7. Prints the kernel table as one JSON line, the card line, and last
+7. The CLI path, each entry point in a subprocess with its real argv and
+   the launch counts set to 0 in it: `python -m smg_tpu_torch.cli.main`
+   trains 3 iterations at b32 with the held flags (--method reinforcement
+   --is_ets --is_pe --is_oo) and scene-0 imagery every iteration, then the
+   run tree is checked (config.json, the ten transitions logs with B rows
+   per step where the layout has them, their .bin mirrors read back equal
+   when the native library loaded, one checkpoint, the snapshot, the
+   imagery with a 480 x 640 RGB-D frame); it resumes with
+   --continue_logging for 1 iteration (numbered 4, a second checkpoint),
+   tests 1 iteration with --is_testing --load_snapshot, and
+   `python -m smg_tpu_torch.cli.smoke` runs its cycle; K1-K4's launches
+   summed over the four runs.
+8. Prints the kernel table as one JSON line (each kernel's launches also
+   per path: act, train, parity, cli), the card line, and last
    {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 
 Options: `--out DIR` writes the details (chip_smoke.json, and with
 --profile the profiler table) to DIR; `--profile` adds one act step under
-torch.profiler and a physics-step timing. Imports nothing of JAX.
+torch.profiler and a physics-step timing; `--update_snapshot PATH` only
+builds the kernels and compares the update's modes at a trained run's
+snapshot (update_modes_on_snapshot). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1110,10 +1125,11 @@ def launch_counters():
             "K7 dense block": (dense_block, "launches")}
 
 # The kernels each main path must launch (the act path's, the training
-# path's and the decision-parity path's).
+# path's, the decision-parity path's and the CLI's).
 ACT_KERNELS = ("K1", "K2", "K3", "K4")
 TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K6a", "K6b")
 PARITY_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K7")
+CLI_KERNELS = ("K1", "K2", "K3", "K4")
 
 
 def zero_counts():
@@ -1179,6 +1195,8 @@ def drive_act_path(dev, kernels):
               + f"  success {successes[-1]:.3f}")
     torch.cuda.synchronize()
     counts = read_counts()
+    for k in kernels:
+        k["launches_act"] = counts[k["name"]]
     act_kernels = [k for k in kernels if k["name"].split()[0] in ACT_KERNELS]
     for k in act_kernels:
         k["launches"] = counts[k["name"]]
@@ -1583,12 +1601,197 @@ def reference_score(trainer, obs):
             DETAIL.setdefault("reference", {})[f"{name}/{dtype}"] = err
 
 
+# ---------------------------------------------------------------------------
+# The CLI path: python -m smg_tpu_torch.cli.main / .smoke in subprocesses
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN_ITERS = 3
+CLI_FLAGS = ("--is_sim", "--method", "reinforcement", "--is_ets", "--is_pe", "--is_oo",
+             "--batch_size", str(B_MAIN))
+# Logs with B rows per step; clearance and episode_success get a row per
+# finished episode, training_loss one per step.
+PER_SCENE_LOGS = ("executed-action", "label-value", "reward-value", "predicted-value",
+                  "use-heuristic", "is-exploit", "grasping_type")
+# Runs `python -m <module> <args>` in this process with the launch counts
+# set to 0 first, and writes the counts to <out> at its end.
+CLI_RUNNER = (
+    "import json, runpy, sys\n"
+    "import chip_smoke\n"
+    "out, module, args = sys.argv[1], sys.argv[2], sys.argv[3:]\n"
+    "chip_smoke.zero_counts()\n"
+    "sys.argv = [module, *args]\n"
+    "try:\n"
+    "    runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    with open(out, 'w') as f:\n"
+    "        json.dump(chip_smoke.read_counts(), f)\n"
+)
+
+
+def run_cli(module: str, args, tmp: Path, tag: str):
+    """One entry point in a subprocess with its real argv; (stdout,
+    launch counts, seconds). A nonzero exit fails the run."""
+    out = tmp / f"{tag}.counts.json"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", CLI_RUNNER, str(out), module, *args],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:] + res.stderr[-4000:])
+    check(res.returncode == 0, f"{tag}: python -m {module} exited {res.returncode}")
+    print(f"cli {tag} ({seconds:.1f} s): " + " | ".join(
+        line for line in res.stdout.splitlines()
+        if line.startswith(("Training iteration", "Testing iteration", "done:", "smoke ok"))))
+    return res.stdout, json.loads(out.read_text()), seconds
+
+
+def _log_rows(run_dir: Path, name: str):
+    import numpy as np
+
+    path = run_dir / "transitions" / f"{name}.log.txt"
+    check(path.exists(), f"{path} is missing")
+    return np.loadtxt(path, ndmin=2) if path.stat().st_size else np.zeros((0, 0))
+
+
+def check_run_tree(run_dir: Path, iters: int) -> dict:
+    """The CLI's run tree after `iters` training iterations at B_MAIN."""
+    import numpy as np
+
+    from smg_tpu_torch.utils import native
+    from smg_tpu_torch.utils.logger import LOG_NAMES
+
+    cfg = json.loads((run_dir / "info" / "config.json").read_text())
+    check(cfg["loop"]["batch_size"] == B_MAIN, "info/config.json")
+    rows = {name: _log_rows(run_dir, name) for name in LOG_NAMES}
+    for name in PER_SCENE_LOGS:
+        check(rows[name].shape[0] == iters * B_MAIN,
+              f"{name}: {rows[name].shape[0]} rows, want {iters * B_MAIN}")
+    check(rows["executed-action"].shape[1] == 7, "executed-action columns")
+    check(rows["training_loss"][:, 0].tolist() == list(range(1, iters + 1)),
+          f"training_loss iterations {rows['training_loss'][:, 0].tolist()}")
+    check(rows["clearance"].shape[0] == rows["episode_success"].shape[0],
+          "a clearance row per finished episode")
+    mirrored = native.load_library() is not None
+    if mirrored:
+        for name, r in rows.items():
+            if not r.size:
+                continue
+            back = np.stack(native.read_binary_log(
+                str(run_dir / "transitions" / f"{name}.log.bin")))
+            check(np.array_equal(back, r.astype(np.float32)),
+                  f"{name}.log.bin differs from its text rows")
+    ckpts = sorted(p.name for p in (run_dir / "models" / "ckpt").glob("*.pt"))
+    check(ckpts == [f"{iters}.pt"], f"checkpoints {ckpts}")
+    check((run_dir / "models" / "snapshot").is_file(), "models/snapshot")
+    data = run_dir / "data"
+    for i in range(1, iters + 1):
+        for path in (data / "color-heightmaps" / f"{i:06d}.0.color.npy",
+                     data / "depth-heightmaps" / f"{i:06d}.0.depth.npy",
+                     run_dir / "visualizations" / f"{i:06d}.action.npy",
+                     data / "color-images" / f"{i:06d}.0.color.npy"):
+            check(path.is_file(), f"{path} is missing")
+    frame = np.load(data / "color-images" / f"{iters:06d}.0.color.npy")
+    check(frame.shape == (480, 640, 3) and bool(np.isfinite(frame).all()),
+          f"RGB frame {frame.shape}")
+    hm = np.load(data / "depth-heightmaps" / f"{iters:06d}.0.depth.npy")
+    check(hm.shape == (224, 224) and bool(np.isfinite(hm).all()), "depth heightmap")
+    print(f"run tree ok: rows {({k: int(v.shape[0]) for k, v in rows.items()})}, "
+          f".log.bin mirrors {'equal to the text rows' if mirrored else 'not built'}, "
+          f"checkpoints {ckpts}, RGB-D frame {frame.shape}")
+    return {"rows": {k: int(v.shape[0]) for k, v in rows.items()},
+            "bin_mirror": mirrored, "checkpoints": ckpts}
+
+
+def drive_cli_path(kernels):
+    """The experiment CLI's main path through its entry points, each in a
+    subprocess with its real argv: python -m smg_tpu_torch.cli.main trains
+    CLI_TRAIN_ITERS iterations at b32 with the held flags and scene-0
+    imagery every iteration, resumes with --continue_logging for one
+    more, tests one iteration with --load_snapshot on the held-out
+    catalog; then python -m smg_tpu_torch.cli.smoke. The run tree is
+    checked after each, and K1-K4's launches summed over the four runs."""
+    import tempfile
+
+    main_mod = "smg_tpu_torch.cli.main"
+    total = {name: 0 for name in launch_counters()}
+    outs, seconds = {}, {}
+
+    def cli(tag, module, args):
+        outs[tag], counts, seconds[tag] = run_cli(module, args, tmp, tag)
+        for name, c in counts.items():
+            total[name] += c
+
+    with tempfile.TemporaryDirectory(prefix="smg_cli_") as td:
+        tmp = Path(td)
+        cli("train", main_mod, [*CLI_FLAGS, "--max_iterations", str(CLI_TRAIN_ITERS),
+                                "--imagery_every", "1",
+                                "--logging_directory", str(tmp / "train")])
+        (run_dir,) = (tmp / "train").iterdir()
+        tree = check_run_tree(run_dir, CLI_TRAIN_ITERS)
+
+        n = CLI_TRAIN_ITERS + 1
+        cli("resume", main_mod, [*CLI_FLAGS, "--continue_logging",
+                                 "--logging_directory", str(run_dir),
+                                 "--max_iterations", str(n), "--imagery_every", "0"])
+        check(f"Resumed trainer state from checkpoint step {n - 1} (iteration {n - 1})"
+              in outs["resume"], "the resumed run restored no checkpoint")
+        check(f"Training iteration: {n} |" in outs["resume"],
+              "the resumed run does not continue from the checkpoint's iteration")
+        iters = _log_rows(run_dir, "training_loss")[:, 0].tolist()
+        check(iters == list(range(1, n + 1)), f"training_loss iterations {iters}")
+        ckpts = sorted(p.name for p in (run_dir / "models" / "ckpt").glob("*.pt"))
+        check(ckpts == [f"{n - 1}.pt", f"{n}.pt"], f"checkpoints after resume {ckpts}")
+
+        cli("test", main_mod, [*CLI_FLAGS, "--is_testing", "--load_snapshot",
+                               "--snapshot_file", str(run_dir / "models" / "snapshot"),
+                               "--obj_mesh_dir", "datasets/testing", "--max_iterations", "1",
+                               "--imagery_every", "0", "--logging_directory", str(tmp / "test")])
+        check("Pre-trained model snapshot loaded from" in outs["test"]
+              and "Testing iteration: 1 |" in outs["test"], "the testing run")
+        (test_dir,) = (tmp / "test").iterdir()
+        check(_log_rows(test_dir, "reward-value").shape[0] == B_MAIN, "testing run rows")
+
+        cli("smoke", "smg_tpu_torch.cli.smoke", ["--batch", "4"])
+        check("smoke ok" in outs["smoke"], "cli.smoke")
+    print("launches in the CLI path: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in total.items()))
+    for k in kernels:
+        k["launches_cli"] = total[k["name"]]
+        if k["name"].split()[0] in CLI_KERNELS:
+            check(total[k["name"]] > 0, f"{k['name']} was not launched by the CLI path")
+    DETAIL["cli_path"] = {
+        "launches": total, "seconds": seconds, "tree": tree,
+        "train_report": outs["train"].split("phase timings:")[-1].strip().splitlines()}
+
+def update_modes_on_snapshot(dev, path: str) -> dict:
+    """compare_update_modes at a trained run's weights: the CLI's held
+    training config (python -m smg_tpu_torch.cli.main --is_ets --is_pe
+    --is_oo --batch_size 32) with the update through K6, the snapshot
+    loaded into both nets, two training steps for an experience of the
+    trained net's own choices, then the comparison."""
+    from smg_tpu_torch.train import checkpoints, loop
+    from smg_tpu_torch.train.trainer import Trainer
+    from smg_tpu_torch.utils import config as cfg_mod
+
+    cfg = cfg_mod.parse_args([*CLI_FLAGS])
+    trainer = Trainer(dataclasses.replace(cfg.train, fast_train_conv2="pk"), device=dev)
+    state = loop.init_loop(SEED + 1, trainer, cfg.loop)
+    checkpoints.load_snapshot(trainer, path)
+    for _ in range(2):
+        state, _ = loop.train_step(trainer, cfg.loop, state)
+    return compare_update_modes(trainer, state)
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the details (JSON, profiler table)")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more act step, time the physics step")
+    ap.add_argument("--update_snapshot", default="",
+                    help="only compare the update's modes at this run snapshot's "
+                         "weights (update_modes_on_snapshot), after the build")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device is available")
@@ -1607,6 +1810,10 @@ def main(argv):
           f"{_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     DETAIL["build_seconds"] = build_s
     DETAIL["build_log"] = _build.build_log
+    if args.update_snapshot:
+        res = update_modes_on_snapshot(dev, args.update_snapshot)
+        print(json.dumps({"update_modes_snapshot": res, "card": card}, default=str))
+        return
 
     kernels = [phase_contact(dev), phase_dense_layer(dev), phase_transition(dev),
                phase_stem(dev), phase_conv2(dev), *phase_dense_layer_train(dev),
@@ -1624,6 +1831,9 @@ def main(argv):
     phase_trunk_passes(runs)
     check(not parity_failed,
           f"decision parity failed for (input, backend, style) {parity_failed}")
+    del runs
+    torch.cuda.empty_cache()
+    drive_cli_path(kernels)
 
     DETAIL["card"] = card
     DETAIL["kernels"] = kernels
@@ -1632,8 +1842,11 @@ def main(argv):
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_b1024",
             "bound_ms_b1024")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
-                                  for kern in kernels]}))
+    paths = ("act", "train", "parity", "cli")
+    print(json.dumps({"kernels": [
+        {**{k: kern[k] for k in keys if k in kern},
+         "launches_by_path": {p: kern[f"launches_{p}"] for p in paths}}
+        for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

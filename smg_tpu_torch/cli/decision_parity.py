@@ -22,7 +22,7 @@ scene is decided, so at 640 the rule guards against gross errors and its
 argmax part is not tested ("argmax_tested" false). "strict_ok" reports the
 rule at 0.25 at every size.
 
-The weights are the test's discriminative construction
+Without --snapshot the weights are the test's discriminative construction
 (tests/test_decision_parity.py:147-160): Flax's default conv init (LeCun
 normal, variance 1 / fan_in) with every kernel scaled 1.5x, and BatchNorm
 statistics that keep the ReLU chain alive at depth
@@ -32,8 +32,17 @@ are scaled by 1.5 / sqrt(2). At plain init full-depth trunks map the
 objects to near-equal values and the check would be vacuous; at He x 1.5
 the values explode.
 
+With --snapshot the weights are a trained run's models/snapshot
+(train/checkpoints.py::save_params) instead. A snapshot trained at input
+224 scores at 640 with its heads' global 7 x 7 conv carried onto the
+20 x 20 feature grid (`carry_head_kernel`): the 640 input is the 224
+heightmap zoomed 2x and padded by 96 pixels, 3 feature cells, so each
+kernel tap covers the 2 x 2 cells of its zoomed patch at a quarter of
+its weight, and the border cells get 0.
+
     python -m smg_tpu_torch.cli.decision_parity [--scenes 8]
         [--input_size 224|640] [--backend xla_fl|xla_pk|pallas]
+        [--snapshot logs/<run>/models/snapshot]
 
 Prints one JSON line (per style: the error, the spread, the tolerance,
 the decided scenes, argmax agreement) and exits 1 when a check fails. Runs
@@ -45,9 +54,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import sys
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from smg_tpu_torch.envs import smg_env
@@ -55,6 +66,7 @@ from smg_tpu_torch.models.affordance import (AffordanceNet, ModelConfig, init_pa
                                              preprocess_depth)
 from smg_tpu_torch.models.densenet import BLOCK_CONFIG
 from smg_tpu_torch.models.fast_trunk import BACKENDS
+from smg_tpu_torch.train import checkpoints
 
 STYLES = (0, 1, 2)
 CONV_SCALE = 1.5 / math.sqrt(2.0)   # He normal -> 1.5 x LeCun normal
@@ -63,7 +75,11 @@ MIN_SPREAD = 0.05
 # Where bf16 rounding alone misses the rule at random weights: the bf16
 # module forward reads 0.232-0.641 of the spread at 640, 0.103-0.237 at
 # 224; the backends read 0.77-1.55 times the bf16 module forward's ratio at
-# 640 (chip_smoke.py on an H100 80GB HBM3 at 700 W).
+# 640 (chip_smoke.py on an H100 80GB HBM3 at 700 W). The witness stays for
+# trained snapshots too: on the b32 run's snapshot (run_port_b32.sh, the
+# same card) the backends read 0.097-0.129 at 224 and 0.152-0.281 at 640,
+# xla_pk's style 2 above 0.25, against the bf16 module forward's
+# 0.152-0.227 there.
 WITNESS_SIZES = (640,)
 WITNESS_FACTOR = 2.0
 # (lo, hi) of the uniform draw of each BatchNorm tensor.
@@ -83,13 +99,40 @@ def alive_stats_(model: nn.Module, gen: torch.Generator) -> None:
                     t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
 
 
+def carry_head_kernel(w: torch.Tensor, feature_hw: int) -> torch.Tensor:
+    """A head's global conv kernel (O, C, 7, 7) trained at input 224 ->
+    (O, C, 20, 20) for input 640 (see the module docstring)."""
+    k = w.shape[-1]
+    pad = (feature_hw - 2 * k) // 2
+    if (k, feature_hw) != (7, 20):
+        raise ValueError(f"no carry of a {k} x {k} head kernel to {feature_hw} x {feature_hw}")
+    w2 = w.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1) / 4.0
+    return F.pad(w2, (pad, pad, pad, pad))
+
+
+def load_snapshot(model: AffordanceNet, path: str) -> None:
+    """A run's snapshot into `model`, the heads' global convs carried to
+    the model's feature grid where the snapshot's input size differs."""
+    state = checkpoints.load_params(path)
+    want = model.state_dict()
+    for name, w in state.items():
+        if name.endswith("head.conv1.weight") and w.shape != want[name].shape:
+            state[name] = carry_head_kernel(w, model.cfg.feature_hw)
+    model.load_state_dict(state)
+
+
 def make_model(input_size: int, seed: int = 0, device="cuda",
-               block_config=BLOCK_CONFIG, dtype: str = "bfloat16") -> AffordanceNet:
-    """The check's model: conv kernels 1.5 x LeCun normal (He init x
-    CONV_SCALE), alive BatchNorm statistics; made on the CPU from `seed`,
-    then moved. The weights do not depend on dtype, the compute does."""
+               block_config=BLOCK_CONFIG, dtype: str = "bfloat16",
+               snapshot: str = "") -> AffordanceNet:
+    """The check's model: a trained snapshot's weights, or else conv
+    kernels 1.5 x LeCun normal (He init x CONV_SCALE) with alive BatchNorm
+    statistics, made on the CPU from `seed`; then moved. The weights do not
+    depend on dtype, the compute does."""
     model = AffordanceNet(ModelConfig(method="reinforcement", input_size=input_size,
                                       dtype=dtype, block_config=block_config))
+    if snapshot:
+        load_snapshot(model, snapshot)
+        return model.to(device)
     init_params(model, torch.Generator().manual_seed(seed))
     with torch.no_grad():
         for m in model.modules():
@@ -173,9 +216,10 @@ def evaluate(model: AffordanceNet, oracle: AffordanceNet, scene_imgs, mask_imgs,
     return out
 
 
-def make_models(input_size: int, seed: int = 0, device="cuda", block_config=BLOCK_CONFIG):
+def make_models(input_size: int, seed: int = 0, device="cuda", block_config=BLOCK_CONFIG,
+                snapshot: str = ""):
     """(the bf16 model, its float32 twin for the oracle): the same weights."""
-    return tuple(make_model(input_size, seed, device, block_config, dtype)
+    return tuple(make_model(input_size, seed, device, block_config, dtype, snapshot)
                  for dtype in ("bfloat16", "float32"))
 
 
@@ -193,20 +237,22 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0, help="weights and statistics")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--snapshot", default="",
-                    help="not available yet: trained checkpoints come with the "
-                         "checkpoint slice; the run stops with an error if given")
+                    help="a run's models/snapshot in place of the random weights")
     args = ap.parse_args(argv)
-    if args.snapshot:
-        ap.error("--snapshot needs the checkpoint slice, which is not ported yet")
+    if args.snapshot and not os.path.isfile(args.snapshot):
+        ap.error(f"--snapshot {args.snapshot}: no such file")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("decision_parity: no CUDA device is available")
-    model, oracle = make_models(args.input_size, args.seed, args.device)
+    model, oracle = make_models(args.input_size, args.seed, args.device,
+                                snapshot=args.snapshot)
     masked, obj_depth, valid = render(args.scenes, args.device)
     scene_imgs, mask_imgs = prepare(masked, obj_depth, args.input_size)
     res = evaluate(model, oracle, scene_imgs, mask_imgs, valid, (args.backend,))
     agree = sum(r["argmax_agree"] for r in res.values())
     total = sum(r["scenes"] for r in res.values())
-    out = {"source": f"1.5 x LeCun-normal convs + alive stats, seed {args.seed}",
+    source = (args.snapshot if args.snapshot
+              else f"1.5 x LeCun-normal convs + alive stats, seed {args.seed}")
+    out = {"source": source,
            "scenes": args.scenes, "input_size": args.input_size,
            "backend": args.backend, "device": str(args.device),
            "styles": {str(s): r for (_, s), r in res.items()},

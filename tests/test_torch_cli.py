@@ -1,0 +1,373 @@
+"""The port's experiment runner (cli/main.py) against the JAX package's, on
+the CPU.
+
+- Flags: the reference command lines give the same info/config.json keys
+  and values under both packages' parse_args, apart from the fields that
+  only one side has (listed below); the flag values whose modules are not
+  ported stop with SystemExit naming the ROADMAP item.
+- Log rows: one numpy StepMetrics through JAX's log_step_metrics and the
+  port's (directly, and through fetch_metrics from tensors) gives
+  byte-identical .log.txt files, across a step with finished episodes and
+  a nonzero episode_base; the .bin mirror reads back the text rows, also
+  after a resumed logger reopens it.
+- Camera: Camera.overhead() and reference_overhead() equal JAX's to
+  float32 rounding.
+- Perspective render: render_rgbd against JAX's on the same objects at a
+  reduced frame (its height / width arguments, intrinsics scaled with
+  them): depth within 1e-5 m, colour exact, except on silhouette pixels
+  (counted, at most SILHOUETTE_BOUND of the frame).
+- End to end: run(cfg) with one-layer dense blocks, B = 2 and 3-step
+  primitive phases trains 2 iterations into the tree that
+  scripts/analyze_results.py::summarize reads, a --continue_logging run
+  resumes at iteration 3, a testing run loads the snapshot; cli.smoke runs
+  its cycle.
+"""
+
+import dataclasses
+import importlib.util
+import os
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smg_tpu_torch.cli import decision_parity as dp
+from smg_tpu_torch.cli import main as cli
+from smg_tpu_torch.cli import smoke
+from smg_tpu_torch.core import camera as cam
+from smg_tpu_torch.envs import smg_env as env
+from smg_tpu_torch.envs.primitives import PrimitiveParams
+from smg_tpu_torch.models.affordance import AffordanceNet, ModelConfig
+from smg_tpu_torch.physics import scene as scene_mod
+from smg_tpu_torch.render import persp
+from smg_tpu_torch.train import checkpoints
+from smg_tpu_torch.train.loop import StepMetrics
+from smg_tpu_torch.train.trainer import TrainConfig, Trainer
+from smg_tpu_torch.utils import config as cfg_mod
+from smg_tpu_torch.utils import native
+from smg_tpu_torch.utils.logger import LOG_NAMES, Logger
+
+REPO = Path(__file__).resolve().parent.parent
+
+REFERENCE_CMDS = [
+    "--is_sim --method reactive --is_pe --is_oo --explore_rate_decay",
+    "--is_sim --method reinforcement --is_pe --is_oo",
+    "--is_sim --method reactive --is_ets --is_pe --is_oo",
+    "--is_sim --method reinforcement --is_ets --is_pe --is_oo",
+    "--is_sim --method reinforcement --is_ets --is_pe --is_oo --is_cluttered",
+    "--is_testing --load_snapshot --snapshot_file /tmp/x",
+    "--is_sim --method reinforcement --is_ets --is_pe --is_oo --batch_size 32 "
+    "--imagery_every 0 --trunk densenet121 --input_size 224 --training_episode 800",
+    "--batch_size 64 --input_size 640 --seed 7 --step 30 --target_update_freq 5 "
+    "--future_reward_discount 0.7 --continue_logging --logging_directory x",
+]
+# info/config.json fields that only one package has.
+JAX_ONLY = {
+    ("train", "model", "trunk"), ("train", "model", "num_rotations"),
+    ("train", "model", "tied_ets_head"), ("train", "fast_eval"),
+    ("train", "fast_train"), ("train", "unroll_styles"),
+    ("env", "segmentation"), ("loop", "env", "segmentation"),
+    ("loop", "executor"), ("loop", "segmenter"),
+}
+PORT_ONLY = {("train", "model", "block_config"), ("device",)}
+
+SILHOUETTE_BOUND = 2e-3
+BLOCKS = (1, 1, 1, 1)
+SHORT = PrimitiveParams(steps_move_above=3, steps_preclose=3, steps_descend=3,
+                        steps_squeeze=3, steps_lift=3, steps_pad_align=3,
+                        steps_finish=3)
+
+
+def _flat(d, prefix=()):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = list(v) if isinstance(v, tuple) else v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Flags
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cmd", REFERENCE_CMDS)
+def test_config_dict_matches_jax(cmd):
+    from smg_tpu.utils import config as jcfg
+
+    want = _flat(jcfg.parse_args(cmd.split()).to_dict())
+    got = _flat(cfg_mod.parse_args(cmd.split()).to_dict())
+    assert JAX_ONLY <= want.keys() and PORT_ONLY <= got.keys()
+    assert want.keys() - JAX_ONLY == got.keys() - PORT_ONLY
+    for k in want.keys() - JAX_ONLY:
+        assert got[k] == want[k], k
+
+
+def test_device_flag():
+    assert cfg_mod.parse_args([]).device == "cuda"
+    assert cfg_mod.parse_args(["--cpu"]).device == "cpu"
+    assert cli.resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            cli.resolve_device("cuda")
+
+
+@pytest.mark.parametrize("argv,item", [
+    ("--trunk tiny", "item 8"),
+    ("--segmentation learned --segmenter_checkpoint s", "item 4"),
+    ("--data_parallel 2", "item 7"),
+    ("--pretrained_trunks p", "item 6"),
+    ("--heightmap_resolution 0.004", "heightmap_resolution"),
+])
+def test_unported_flags_stop(argv, item):
+    with pytest.raises(SystemExit, match=item):
+        cfg_mod.parse_args(argv.split())
+
+
+def test_mesh_dir_stops(tmp_path):
+    (tmp_path / "enveloping").mkdir()
+    with pytest.raises(SystemExit, match="item 2"):
+        cfg_mod.parse_args(["--obj_mesh_dir", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# Log rows
+# ---------------------------------------------------------------------------
+
+
+def _metrics_np(rng, B, done):
+    m = {
+        "loss": np.float32(rng.rand()),
+        "reward": rng.choice([0.0, 0.5, 1.0, 2.5], B).astype(np.float32),
+        "label_value": rng.randn(B).astype(np.float32),
+        "predicted_value": rng.randn(B).astype(np.float32),
+        "action": rng.randint(0, 3, B).astype(np.int32),
+        "explored": rng.rand(B) < 0.5,
+        "best_pix": rng.randint(0, 224, (B, 6)).astype(np.int32),
+        "objects_number": rng.randint(0, 11, B).astype(np.int32),
+        "episodes_done": np.isin(np.arange(B), done),
+        "episode_iter": rng.randint(1, 21, B).astype(np.int32),
+        "episode_succ": rng.randint(0, 10, B).astype(np.int32),
+        "grasp_success": (rng.rand(B) < 0.5).astype(np.float32),
+        "suction_success": (rng.rand(B) < 0.5).astype(np.float32),
+        "gs_success": rng.choice([0.0, 0.5, 2.5], B).astype(np.float32),
+        "color_hm0": np.zeros((224, 224, 3), np.float32),
+        "depth_hm0": np.zeros((224, 224), np.float32),
+        "exec_mask0": np.zeros((224, 224), bool),
+        "seg_masks0": np.zeros((12, 224, 224), bool),
+        "seg_boxes0": np.zeros((12, 2, 2), np.float32),
+        "seg_valid0": np.zeros(12, bool),
+    }
+    return m
+
+
+def _log_bytes(directory: str) -> dict:
+    out = {}
+    for name in LOG_NAMES:
+        p = os.path.join(directory, f"{name}.log.txt")
+        out[name] = open(p, "rb").read() if os.path.exists(p) else b""
+    return out
+
+
+def test_log_rows_byte_identical(tmp_path):
+    from smg_tpu.cli import main as jmain
+    from smg_tpu.train import loop as jloop
+    from smg_tpu.utils.logger import Logger as JLogger
+
+    rng = np.random.RandomState(0)
+    B = 5
+    steps = [_metrics_np(rng, B, []), _metrics_np(rng, B, [1, 3, 4])]
+    jl = JLogger(False, str(tmp_path / "jax"))
+    direct = Logger(False, str(tmp_path / "port"))
+    fetched = Logger(False, str(tmp_path / "fetched"))
+    bases = {"jax": 7, "direct": 7, "fetched": 7}
+    for it, m in enumerate(steps, start=1):
+        bases["jax"] += jmain.log_step_metrics(
+            jl, jloop.StepMetrics(**m), it, bases["jax"])
+        bases["direct"] += cli.log_step_metrics(
+            direct, jloop.StepMetrics(**m), it, bases["direct"])
+        tm = StepMetrics(**{k: torch.as_tensor(np.asarray(v)) for k, v in m.items()})
+        host = cli.fetch_metrics(tm, torch.tensor([2, 0, 1, 0, 3], dtype=torch.int32))
+        assert host.episodes == 6
+        bases["fetched"] += cli.log_step_metrics(fetched, host, it, bases["fetched"])
+    assert bases == {"jax": 10, "direct": 10, "fetched": 10}
+    for lg in (jl, direct, fetched):
+        lg.close()
+    want = _log_bytes(jl.transitions_directory)
+    assert all(want.values()), "every log has rows after the second step"
+    assert want["episode_success"].startswith(b"7.0000")
+    for lg in (direct, fetched):
+        assert _log_bytes(lg.transitions_directory) == want
+
+
+def test_binary_mirror_and_resume(tmp_path):
+    if native.load_library() is None:
+        pytest.skip("the native library does not build here")
+    lg = Logger(False, str(tmp_path))
+    lg.write_to_log("training_loss", [[1, 0.25], [2, 0.125]])
+    lg.close()
+    again = Logger(True, lg.base_directory)
+    again.write_to_log("training_loss", [[3, 0.5]])
+    text = again.read_log("training_loss")
+    again.close()
+    assert text.tolist() == [[1, 0.25], [2, 0.125], [3, 0.5]]
+    back = native.read_binary_log(os.path.join(lg.transitions_directory,
+                                               "training_loss.log.bin"))
+    np.testing.assert_array_equal(np.stack(back), text.astype(np.float32))
+    assert again.read_log("clearance").shape == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# Camera and the perspective render
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("which", ["overhead", "reference_overhead"])
+def test_camera_matches_jax(which):
+    from smg_tpu.core import camera as jcam
+
+    want = getattr(jcam.Camera, which)()
+    got = getattr(cam.Camera, which)()
+    np.testing.assert_array_equal(got.intrinsics.numpy(), np.asarray(want.intrinsics))
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), rtol=0,
+                               atol=float(np.finfo(np.float32).eps))
+    assert got.pose.dtype == torch.float32
+
+
+def _silhouette(depth_a, depth_b):
+    """Pixels within 2 px of a depth step over 1 mm in either frame."""
+    from scipy.ndimage import binary_dilation
+
+    def steps(d):
+        e = np.zeros(d.shape, bool)
+        e[:, 1:] |= np.abs(np.diff(d, axis=1)) > 1e-3
+        e[1:, :] |= np.abs(np.diff(d, axis=0)) > 1e-3
+        return e
+    return binary_dilation(steps(depth_a) | steps(depth_b), np.ones((5, 5), bool))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_render_rgbd_matches_jax(seed):
+    from smg_tpu.core import camera as jcam
+    from smg_tpu.physics import state as jstate
+    from smg_tpu.render import persp as jpersp
+
+    scenes = scene_mod.reset_scene(torch.Generator().manual_seed(seed), 1, "cpu",
+                                   is_cluttered=True, settle_steps=20)
+    obj = scenes.objects.map(lambda x: x[0])
+    H, W, s = 120, 160, 0.25      # a quarter of the 480 x 640 frame
+    K = cam.DEFAULT_INTRINSICS * np.array([[s], [s], [1.0]], np.float32)
+    pose = cam.Camera.overhead().pose
+    color, depth = persp.render_rgbd(obj, cam.Camera(torch.as_tensor(K), pose), H, W)
+    jobj = jstate.Objects(**{f.name: jnp.asarray(getattr(obj, f.name).numpy())
+                             for f in dataclasses.fields(obj)})
+    jc = jcam.Camera(intrinsics=jnp.asarray(K), pose=jnp.asarray(pose.numpy()))
+    wc, wd = jax.jit(lambda o: jpersp.render_rgbd(o, jc, H, W))(jobj)
+    wc, wd = np.asarray(wc), np.asarray(wd)
+    color, depth = color.numpy(), depth.numpy()
+    assert depth.shape == (H, W) and color.shape == (H, W, 3)
+    assert (depth < 0.5).sum() > 100, "objects in view"
+    edge = _silhouette(depth, wd)
+    off_d = np.abs(depth - wd) > 1e-5
+    off_c = np.abs(color - wc).max(-1) > 0
+    assert not ((off_d | off_c) & ~edge).any(), "differs off the silhouettes"
+    assert (off_d | off_c).mean() <= SILHOUETTE_BOUND, (off_d | off_c).sum()
+
+
+# ---------------------------------------------------------------------------
+# The runner end to end, the smoke test, snapshots at another input size
+# ---------------------------------------------------------------------------
+
+
+def _small(cfg):
+    model = dataclasses.replace(cfg.train.model, block_config=BLOCKS)
+    e = dataclasses.replace(cfg.env, settle_steps=5)
+    loop = dataclasses.replace(cfg.loop, env=e, reset_settle_steps=3, primitive=SHORT)
+    return dataclasses.replace(cfg, env=e, loop=loop,
+                               train=dataclasses.replace(cfg.train, model=model))
+
+
+def _analyze():
+    spec = importlib.util.spec_from_file_location(
+        "analyze_results", REPO / "scripts" / "analyze_results.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_run_train_resume_test(tmp_path, capsys):
+    flags = ["--cpu", "--is_sim", "--method", "reinforcement", "--is_pe", "--is_oo",
+             "--batch_size", "2"]
+    out = cli.run(_small(cfg_mod.parse_args(
+        flags + ["--max_iterations", "2", "--imagery_every", "2",
+                 "--logging_directory", str(tmp_path / "train")])))
+    run_dir = Path(out["run_dir"])
+    assert out["iterations"] == 2
+    cfg_json = (run_dir / "info" / "config.json").read_text()
+    assert '"batch_size": 2' in cfg_json and '"device": "cpu"' in cfg_json
+    for name in LOG_NAMES:
+        assert (run_dir / "transitions" / f"{name}.log.txt").exists(), name
+    assert sorted(os.listdir(run_dir / "models" / "ckpt")) == ["2.pt"]
+    assert (run_dir / "models" / "snapshot").is_file()
+    assert np.load(run_dir / "data" / "color-images" / "000002.0.color.npy").shape == (480, 640, 3)
+    for p in ("data/color-heightmaps/000002.0.color.npy",
+              "data/depth-heightmaps/000002.0.depth.npy",
+              "visualizations/000002.action.npy"):
+        assert (run_dir / p).is_file(), p
+    summary = _analyze().summarize(str(run_dir))
+    assert summary["batch"] == 2 and summary["transitions"] == 4
+    assert "success_rate" in summary and "final_loss" in summary
+    episodes = np.loadtxt(run_dir / "transitions" / "episode_success.log.txt", ndmin=2)
+
+    out = cli.run(_small(cfg_mod.parse_args(
+        flags + ["--continue_logging", "--logging_directory", str(run_dir),
+                 "--max_iterations", "3", "--imagery_every", "0"])))
+    assert out["iterations"] == 3
+    assert "Resumed trainer state from checkpoint step 2 (iteration 2)" in capsys.readouterr().out
+    loss = np.loadtxt(run_dir / "transitions" / "training_loss.log.txt", ndmin=2)
+    assert loss[:, 0].tolist() == [1.0, 2.0, 3.0]
+    after = np.loadtxt(run_dir / "transitions" / "episode_success.log.txt", ndmin=2)
+    assert after[:, 0].tolist() == list(range(after.shape[0]))
+    assert after.shape[0] >= episodes.shape[0]
+    assert sorted(os.listdir(run_dir / "models" / "ckpt")) == ["2.pt", "3.pt"]
+
+    out = cli.run(_small(cfg_mod.parse_args(
+        flags + ["--is_testing", "--load_snapshot", "--snapshot_file",
+                 str(run_dir / "models" / "snapshot"), "--obj_mesh_dir", "datasets/testing",
+                 "--max_iterations", "1", "--imagery_every", "0",
+                 "--logging_directory", str(tmp_path / "test")])))
+    assert "Pre-trained model snapshot loaded from" in capsys.readouterr().out
+    test_dir = Path(out["run_dir"])
+    assert not (test_dir / "models" / "snapshot").exists()
+    assert _analyze().summarize(str(test_dir))["transitions"] == 2
+
+
+def test_smoke_cycle(capsys):
+    trainer = Trainer(TrainConfig(model=ModelConfig(input_size=224, block_config=BLOCKS)),
+                      device="cpu")
+    res = smoke.smoke(trainer, 2, 0, cfg=env.EnvConfig(is_pe=True, is_oo=True,
+                                                       settle_steps=5), primitive=SHORT)
+    assert len(res) == 2
+    assert all(name in smoke.ACTION_NAMES.values() and r in (0.0, 1.0) for name, r in res)
+    assert "scene objects in view" in capsys.readouterr().out
+
+
+def test_snapshot_carried_to_640(tmp_path):
+    src = AffordanceNet(ModelConfig(input_size=224, block_config=BLOCKS))
+    path = str(tmp_path / "snapshot")
+    checkpoints.save_params(path, src)
+    same = dp.make_model(224, device="cpu", block_config=BLOCKS, snapshot=path)
+    for name, t in same.state_dict().items():
+        assert torch.equal(t, src.state_dict()[name]), name
+    big = dp.make_model(640, device="cpu", block_config=BLOCKS, snapshot=path)
+    w, w2 = src.grasp_head.conv1.weight, big.grasp_head.conv1.weight
+    assert w2.shape[-2:] == (20, 20)
+    assert torch.equal(w2[..., 3:17:2, 3:17:2] * 4.0, w)
+    assert not w2[..., :3, :].any() and not w2[..., 17:, :].any()
+    torch.testing.assert_close(w2.sum(dim=(-2, -1)), w.sum(dim=(-2, -1)))
+    assert torch.equal(big.grasp_trunk.conv0.weight, src.grasp_trunk.conv0.weight)

@@ -539,3 +539,62 @@ def test_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError):                   # 2^31 elements: past 32-bit indices
         k3.transition(torch.empty((1, 2, 2 ** 20, 1024), device=dev, dtype=torch.bfloat16),
                       a, b, wt)
+
+
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A trainer checkpoint saved from the card reloads on the card with
+    the same bits: both nets (BatchNorm buffers included) and Adam."""
+    from smg_tpu_torch.models.affordance import ModelConfig
+    from smg_tpu_torch.train import checkpoints
+    from smg_tpu_torch.train.trainer import TrainConfig, Trainer, TrainerState
+
+    cfg = TrainConfig(model=ModelConfig(input_size=224, block_config=(1, 1, 1, 1)))
+    a = Trainer(cfg, device=dev)
+    a.init_state(_gen(dev, 3))
+    g = _gen(dev, 4)
+    for _ in range(2):
+        for p in a.model.parameters():
+            p.grad = torch.randn(p.shape, generator=g, device=dev)
+        a.opt.step()
+    mgr = checkpoints.CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(2, a, TrainerState(iteration=2))
+    b = Trainer(cfg, device=dev)
+    assert mgr.restore(b).iteration == 2
+    for net_a, net_b in ((a.model, b.model), (a.target, b.target)):
+        for (name, x), y in zip(net_a.state_dict().items(), net_b.state_dict().values()):
+            assert y.is_cuda and torch.equal(x, y), name
+    sa, sb = a.opt.state_dict()["state"], b.opt.state_dict()["state"]
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        assert torch.equal(sa[k]["exp_avg"], sb[k]["exp_avg"])
+        assert torch.equal(sa[k]["exp_avg_sq"], sb[k]["exp_avg_sq"])
+        assert float(sa[k]["step"]) == float(sb[k]["step"]) == 2.0
+
+
+def test_render_rgbd_full_frame(dev):
+    """The 480 x 640 RGB-D frame on the card against the CPU: depth within
+    1e-5 m, colour exact off the silhouettes (a pixel within 2 px of a depth
+    step over 1 mm), at most 0.2% of the frame on them."""
+    import torch.nn.functional as F
+
+    from smg_tpu_torch.core import camera as cam
+    from smg_tpu_torch.physics import scene as scene_mod
+    from smg_tpu_torch.render import persp
+
+    scenes = scene_mod.reset_scene(torch.Generator().manual_seed(2), 1, "cpu",
+                                   is_cluttered=True, settle_steps=20)
+    obj = scenes.objects.map(lambda x: x[0])
+    camera = cam.Camera.overhead()
+    wc, wd = persp.render_rgbd(obj, camera)
+    gc, gd = persp.render_rgbd(obj.map(lambda x: x.to(dev)), camera)
+    assert gd.shape == (480, 640) and gc.shape == (480, 640, 3)
+    gc, gd = gc.cpu(), gd.cpu()
+    steps = torch.zeros_like(wd, dtype=torch.bool)
+    for d in (wd, gd):
+        steps[:, 1:] |= (d[:, 1:] - d[:, :-1]).abs() > 1e-3
+        steps[1:, :] |= (d[1:, :] - d[:-1, :]).abs() > 1e-3
+    edge = F.max_pool2d(steps[None, None].float(), 5, 1, 2)[0, 0] > 0
+    off = ((gd - wd).abs() > 1e-5) | ((gc - wc).abs().amax(-1) > 0)
+    assert int((wd < 0.45).sum()) > 1000, "objects in view"
+    assert not bool((off & ~edge).any()), "differs off the silhouettes"
+    assert float(off.float().mean()) <= 2e-3, int(off.sum())

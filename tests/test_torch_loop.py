@@ -17,6 +17,7 @@ jax out of sys.modules.
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,9 @@ SHALLOW = (2, 2, 2, 2)
 PHASES = dict(steps_move_above=5, steps_preclose=5, steps_descend=5,
               steps_squeeze=5, steps_lift=5, steps_pad_align=5,
               steps_finish=5)
+
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module")
@@ -193,19 +197,23 @@ def test_next_scenes(stepped):
 
 
 def test_port_imports_no_jax():
+    """Every module of smg_tpu_torch (found by pkgutil.walk_packages, so a
+    new module needs no listing) and chip_smoke.py's imports, with its
+    kernel wrappers, load without jax, flax or smg_tpu."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import smg_tpu_torch\n"
-        "from smg_tpu_torch import bridge\n"
-        "from smg_tpu_torch.train import loop, losses, prod_config, trainer\n"
-        "from smg_tpu_torch.ops import _build, contact, conv2, dense_block, "
-        "dense_layer, dense_layer_train, stem_pool, transition\n"
-        "from smg_tpu_torch.cli import decision_parity\n"
+        "mods = [m.name for m in pkgutil.walk_packages(smg_tpu_torch.__path__, "
+        "'smg_tpu_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "chip_smoke.launch_counters()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'flax', 'smg_tpu.')) or m == 'smg_tpu')\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad or 'smg_tpu_torch.cli.main' not in mods else 0)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -179,5 +179,8 @@ def test_decision_parity_entry_point_shallow():
 
 
 def test_decision_parity_snapshot_is_refused():
+    """A --snapshot that names no file is refused before any work (the
+    entry point loads a run's snapshot since the checkpoints were ported;
+    tests/test_torch_cli.py::test_snapshot_carried_to_640 loads one)."""
     with pytest.raises(SystemExit):
         dp.main(["--snapshot", "logs/run/models/snapshot", "--device", "cpu"])
