@@ -56,12 +56,20 @@
    per step where the layout has them, their .bin mirrors read back equal
    when the native library loaded, one checkpoint, the snapshot, the
    imagery with a 480 x 640 RGB-D frame); it resumes with
-   --continue_logging for 1 iteration (numbered 4, a second checkpoint),
-   tests 1 iteration with --is_testing --load_snapshot, and
-   `python -m smg_tpu_torch.cli.smoke` runs its cycle; K1-K4's launches
-   summed over the four runs.
-8. Prints the kernel table as one JSON line (each kernel's launches also
-   per path: act, train, parity, cli), the card line, and last
+   --continue_logging for 1 iteration (numbered 4, a second checkpoint)
+   and tests 1 iteration with --is_testing --load_snapshot; K1-K4's
+   launches summed over the three runs.
+8. The perception path: the SlotSegmenter's forward (b32) and training
+   step (b16) and the batched NMS timed in process; then in subprocesses
+   as in 7: cli.main one iteration at b32 on an --obj_mesh_dir of .obj
+   meshes written here (native fits and their shape types checked first),
+   cli.train_segmenter 40 steps at b16 on cluttered scenes (the loss
+   falls), cli.eval_segmenter on 8 held-out scenes (base and
+   --perspective arms), cli.main with --segmentation learned on that
+   checkpoint (a scene acts on a valid learned mask), cli.main --trunk
+   tiny, and cli.smoke (tiny trunk); K1-K4's launches summed over them.
+9. Prints the kernel table as one JSON line (each kernel's launches also
+   per path: act, train, parity, cli, perception), the card line, and last
    {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 
 Options: `--out DIR` writes the details (chip_smoke.json, and with
@@ -1709,8 +1717,8 @@ def drive_cli_path(kernels):
     CLI_TRAIN_ITERS iterations at b32 with the held flags and scene-0
     imagery every iteration, resumes with --continue_logging for one
     more, tests one iteration with --load_snapshot on the held-out
-    catalog; then python -m smg_tpu_torch.cli.smoke. The run tree is
-    checked after each, and K1-K4's launches summed over the four runs."""
+    catalog. The run tree is checked after each, and K1-K4's launches
+    summed over the three runs (cli.smoke runs in the perception path)."""
     import tempfile
 
     main_mod = "smg_tpu_torch.cli.main"
@@ -1751,9 +1759,6 @@ def drive_cli_path(kernels):
               and "Testing iteration: 1 |" in outs["test"], "the testing run")
         (test_dir,) = (tmp / "test").iterdir()
         check(_log_rows(test_dir, "reward-value").shape[0] == B_MAIN, "testing run rows")
-
-        cli("smoke", "smg_tpu_torch.cli.smoke", ["--batch", "4"])
-        check("smoke ok" in outs["smoke"], "cli.smoke")
     print("launches in the CLI path: " + ", ".join(
         f"{name.split()[0]} {n}" for name, n in total.items()))
     for k in kernels:
@@ -1763,6 +1768,174 @@ def drive_cli_path(kernels):
     DETAIL["cli_path"] = {
         "launches": total, "seconds": seconds, "tree": tree,
         "train_report": outs["train"].split("phase timings:")[-1].strip().splitlines()}
+
+# ---------------------------------------------------------------------------
+# The perception path: mesh ingest, the learned segmenter, the tiny trunk
+# ---------------------------------------------------------------------------
+
+PERCEPTION_KERNELS = ("K1", "K2", "K3", "K4")
+SEG_STEPS = 40
+SEG_BATCH = 16
+SEG_EVAL_SCENES = 8
+
+
+def write_obj(path: Path, kind: str) -> None:
+    """A small .obj mesh: a box, a z-axis cylinder or a sphere (points)."""
+    import numpy as np
+
+    if kind == "box":
+        v = [(sx * 0.03, sy * 0.02, sz * 0.015)
+             for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
+    elif kind == "cylinder":
+        v = [(0.02 * math.cos(a), 0.02 * math.sin(a), z) for z in (-0.035, 0.035)
+             for a in np.arange(24) * (2 * math.pi / 24)]
+    else:
+        u = np.random.RandomState(0).randn(80, 3)
+        v = (0.02 * u / np.linalg.norm(u, axis=1, keepdims=True)).tolist()
+    path.write_text("".join(f"v {x} {y} {z}\n" for x, y, z in v) + "f 1 2 3\n")
+
+
+def write_mesh_dir(root: Path) -> dict:
+    """enveloping/ + sucking/ of .obj meshes -> {file: expected shape type}."""
+    from smg_tpu_torch.utils import native
+
+    want = {}
+    for sub, kinds in (("enveloping", ("box", "cylinder", "sphere")),
+                       ("sucking", ("box", "sphere"))):
+        (root / sub).mkdir(parents=True)
+        for kind in kinds:
+            write_obj(root / sub / f"{kind}.obj", kind)
+            want[f"{sub}/{kind}.obj"] = {"box": native.BOX, "cylinder": native.CYLINDER,
+                                         "sphere": native.SPHERE}[kind]
+    return want
+
+
+def _json_line(out: str) -> dict:
+    return json.loads(next(l for l in reversed(out.splitlines()) if l.startswith("{")))
+
+
+def phase_segmenter(dev) -> dict:
+    """The SlotSegmenter's forward at the loop's batch (b32, bf16) and one
+    training step at cli.train_segmenter's (b16); the batched NMS of
+    predict_segmentation at b32. Each as the median CUDA-event ms of an
+    eager call (the host's issue time inside the window) and as the device
+    time of its kernels (torch.profiler, summed over kernel names)."""
+    from smg_tpu_torch.perception import learned, nms
+
+    model = learned.init_segmenter(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.rand(B_MAIN, 4, 224, 224, generator=g, device=dev)
+    opt = learned.new_optimizer(model)
+    xb = x[:SEG_BATCH]
+    ids = torch.randint(-1, 12, (SEG_BATCH, 224, 224), generator=g, device=dev)
+    boxes = torch.randint(0, 200, (B_MAIN, 12, 2, 2), generator=g, device=dev).float()
+    boxes = torch.sort(boxes, dim=2).values
+    valid = torch.ones(B_MAIN, 12, dtype=torch.bool, device=dev)
+
+    def forward():
+        with torch.no_grad():
+            return model(x)
+
+    calls = {"forward_b32": forward,
+             "train_step_b16": lambda: learned.train_step_segmenter(model, opt, xb, ids),
+             "nms_b32": lambda: nms.nms(boxes, valid, 0.40, 16.0, 224 * 224 / 5.0)}
+    out = {}
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = cuda_ms(fn)
+        out[f"{name}_device_ms"] = sum(_profile_by_kernel(fn, 5).values())
+    print("segmenter (bf16, 224): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def drive_perception_path(dev, kernels):
+    """The perception slice through its entry points, each in a subprocess
+    with its real argv: python -m smg_tpu_torch.cli.main at b32 on an
+    --obj_mesh_dir of .obj meshes written here (their fits checked first:
+    native, the right shape types); cli.train_segmenter 40 steps at b16 on
+    cluttered scenes (the last loss below the first); cli.eval_segmenter
+    on 8 held-out scenes, base and --perspective; cli.main with the held
+    flags and --segmentation learned on that checkpoint (a scene acts on a
+    learned mask); cli.main --trunk tiny; cli.smoke (tiny trunk). K1-K4's
+    launches summed over the runs."""
+    import tempfile
+
+    from smg_tpu_torch.utils import meshes, native
+
+    main_mod = "smg_tpu_torch.cli.main"
+    total = {name: 0 for name in launch_counters()}
+    outs, seconds = {}, {}
+
+    def cli(tag, module, args):
+        outs[tag], counts, seconds[tag] = run_cli(module, args, tmp, tag)
+        for name, c in counts.items():
+            total[name] += c
+
+    detail = {"segmenter": phase_segmenter(dev)}
+    with tempfile.TemporaryDirectory(prefix="smg_perception_") as td:
+        tmp = Path(td)
+        mesh_root = tmp / "meshes"
+        want = write_mesh_dir(mesh_root)
+        fits = {f: native.fit_obj(str(mesh_root / f)) for f in want}
+        check(all(fit.native for fit in fits.values()), "fit_obj did not run natively")
+        check({f: fit.shape_type for f, fit in fits.items()} == want,
+              f"fitted shape types {[(f, fit.shape_type) for f, fit in fits.items()]}")
+        (g_types, _), (s_types, _) = meshes.load_object_sets(str(mesh_root))
+        print(f"mesh ingest: native fits, enveloping types {g_types.tolist()}, "
+              f"sucking types {s_types.tolist()}")
+        cli("mesh", main_mod, [*CLI_FLAGS, "--obj_mesh_dir", str(mesh_root),
+                               "--max_iterations", "1", "--imagery_every", "0",
+                               "--logging_directory", str(tmp / "mesh")])
+        check("Training iteration: 1 |" in outs["mesh"], "the mesh-catalog run")
+
+        ckpt = str(tmp / "segmenter.pt")
+        cli("train_segmenter", "smg_tpu_torch.cli.train_segmenter",
+            ["--steps", str(SEG_STEPS), "--batch_size", str(SEG_BATCH), "--is_cluttered",
+             "--out", ckpt])
+        seg_losses = [float(l.split("| loss ")[1].split(" |")[0])
+                      for l in outs["train_segmenter"].splitlines()
+                      if l.startswith("segmenter step")]
+        print(f"segmenter losses: {seg_losses}")
+        check(len(seg_losses) >= 2 and seg_losses[-1] < seg_losses[0],
+              f"segmenter loss did not fall: {seg_losses}")
+        detail["segmenter_losses"] = seg_losses
+
+        evals = {}
+        for arm, extra in (("base", []), ("perspective", ["--perspective"])):
+            cli(f"eval_{arm}", "smg_tpu_torch.cli.eval_segmenter",
+                ["--checkpoint", ckpt, "--scenes", str(SEG_EVAL_SCENES), "--cluttered",
+                 "--testing", *extra])
+            evals[arm] = _json_line(outs[f"eval_{arm}"])
+            print(f"eval_segmenter {arm}: {json.dumps(evals[arm])}")
+            check(evals[arm]["visible_objects"] > 0 and 0.0 <= evals[arm]["miou"] <= 1.0,
+                  f"eval_segmenter {arm}")
+        detail["eval"] = evals
+
+        cli("learned", main_mod, [*CLI_FLAGS, "--segmentation", "learned",
+                                  "--segmenter_checkpoint", ckpt, "--max_iterations", "1",
+                                  "--imagery_every", "0",
+                                  "--logging_directory", str(tmp / "learned")])
+        check("segmenter loaded from" in outs["learned"], "the learned-mask run")
+        (run_dir,) = (tmp / "learned").iterdir()
+        pred = _log_rows(run_dir, "predicted-value")
+        # A scene whose action has a target scored on a valid learned mask
+        # (no valid mask: -1e9, or -100 for an ETS pair).
+        check(pred.shape[0] == B_MAIN and bool((pred > -99).any()),
+              "no scene acted on a valid learned mask")
+        detail["learned_scenes_with_a_mask"] = int((pred > -99).sum())
+
+        cli("tiny", main_mod, [*CLI_FLAGS, "--trunk", "tiny", "--max_iterations", "1",
+                               "--imagery_every", "0", "--logging_directory", str(tmp / "tiny")])
+        check("Training iteration: 1 |" in outs["tiny"], "the tiny-trunk run")
+        cli("smoke", "smg_tpu_torch.cli.smoke", ["--batch", "4"])
+        check("smoke ok" in outs["smoke"], "cli.smoke")
+    print("launches in the perception path: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in total.items()))
+    for k in kernels:
+        k["launches_perception"] = total[k["name"]]
+        if k["name"].split()[0] in PERCEPTION_KERNELS:
+            check(total[k["name"]] > 0, f"{k['name']} was not launched by the perception path")
+    DETAIL["perception_path"] = {"launches": total, "seconds": seconds, **detail}
+
 
 def update_modes_on_snapshot(dev, path: str) -> dict:
     """compare_update_modes at a trained run's weights: the CLI's held
@@ -1834,6 +2007,7 @@ def main(argv):
     del runs
     torch.cuda.empty_cache()
     drive_cli_path(kernels)
+    drive_perception_path(dev, kernels)
 
     DETAIL["card"] = card
     DETAIL["kernels"] = kernels
@@ -1842,7 +2016,7 @@ def main(argv):
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_b1024",
             "bound_ms_b1024")
-    paths = ("act", "train", "parity", "cli")
+    paths = ("act", "train", "parity", "cli", "perception")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in keys if k in kern},
          "launches_by_path": {p: kern[f"launches_{p}"] for p in paths}}

@@ -7,23 +7,29 @@ Pallas kernel on the ported path is a hand-written CUDA C++ kernel for
 sm_90a (csrc/), built at first use and bound through ctypes (ops/).
 
 Port state: the act step and the training step (train/loop.py), the eval
-trunk's three kernel backends, and the experiment runner
+trunk's three kernel backends, the experiment runner
 (`python -m smg_tpu_torch.cli.main`, the reference's flags): the run tree,
-checkpoints, resume and the snapshot for testing.
+checkpoints, resume and the snapshot for testing; and the perception
+slice: mesh ingest, the learned segmenter, the perspective heightmap path
+and the tiny trunk.
 
 Subpackages
 -----------
-core        rotations/quaternions, tendon model, camera constants, Camera
+core        rotations/quaternions, tendon model, camera and the perspective
+            heightmap path, homographies
 physics     batched rigid-body stepper (contact sweep: CUDA kernel K1)
 render      orthographic heightmap/instance rasterizer, perspective RGB-D
-perception  exact instance segmentation, min-area rects
-models      DenseNet-121 two-stream affordance nets (eval trunk: K2-K5,
-            K7; train trunk: K6)
+perception  exact instance segmentation, min-area rects, NMS, the learned
+            slot segmenter
+models      two-stream affordance nets on DenseNet-121 (eval trunk: K2-K5,
+            K7; train trunk: K6) or the tiny trunk
 policy      action arbitration, PE / OO action geometry
 envs        scripted primitives + the batched executor
 train       trainer, the loop, checkpoints
-utils       CLI config, run logger, native host library, phase timer
-cli         main (the experiment runner), smoke, decision_parity
+utils       CLI config, run logger, native host library (mesh fitter,
+            binary log), mesh ingest, phase timer
+cli         main (the experiment runner), smoke, decision_parity,
+            train_segmenter, eval_segmenter
 ops         kernel wrappers: plain PyTorch versions, launch counters
 """
 

@@ -13,6 +13,11 @@ neither jax nor flax.
   running_var. The tied ETS head (affordance.py:54) is carried over as it
   is: gs_head gets its own (unused) weights, and the model reads
   suction_head for style 2. `dump_affordance_params` goes back.
+  The tiny trunk's children carry the Flax names too (conv0-4, norm0-4,
+  proj), so the same functions carry a tiny-trunk AffordanceNet.
+- `load_segmenter_params` / `dump_segmenter_params`: Flax SlotSegmenter
+  `params` (Conv_k kernel + bias, GroupNorm_k scale + bias) to the port's
+  SlotSegmenter, whose children carry the same auto names, and back.
 - `load_trainer_state` / `trainer_state_to_numpy`: a JAX TrainerState
   (online and target params + batch_stats, optax's ScaleByAdamState
   count/mu/nu, the iteration) into a port Trainer's two nets and
@@ -158,6 +163,29 @@ def dump_affordance_params(model) -> tuple[dict, dict]:
                 _set(stats, path + ("mean",), _np(m.running_mean))
                 _set(stats, path + ("var",), _np(m.running_var))
     return params, stats
+
+
+def load_segmenter_params(model, params: dict) -> None:
+    """Flax SlotSegmenter params -> the port's SlotSegmenter."""
+    for name, child in model.named_children():
+        p = params[name]
+        if isinstance(child, torch.nn.Conv2d):
+            _load_conv(child, p)
+            _copy(child.bias, p["bias"])
+        else:
+            _copy(child.weight, p["scale"])
+            _copy(child.bias, p["bias"])
+
+
+def dump_segmenter_params(model) -> dict:
+    """The port's SlotSegmenter -> Flax-layout params (numpy)."""
+    out = {}
+    for name, child in model.named_children():
+        if isinstance(child, torch.nn.Conv2d):
+            out[name] = {"kernel": to_flax(child.weight, True), "bias": _np(child.bias)}
+        else:
+            out[name] = {"scale": _np(child.weight), "bias": _np(child.bias)}
+    return out
 
 
 def load_trainer_state(trainer, tree: dict):

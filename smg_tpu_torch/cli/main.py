@@ -12,11 +12,14 @@ Usage follows the reference (reference README.md:40-113), e.g.:
     python -m smg_tpu_torch.cli.main ... --is_testing --load_snapshot \
         --snapshot_file logs/<ts>/models/snapshot
 
-plus the batched-run knobs --batch_size N and --input_size 224|640, and
---cpu to run on the CPU. A run writes the reference's run tree
-(utils/logger.py): info/config.json, the ten transitions logs, scene-0
-imagery every --imagery_every iterations, checkpoints under models/ckpt
-every 50 training iterations and at the end, and models/snapshot.
+plus the batched-run knobs --batch_size N, --input_size 224|640 and
+--trunk densenet121|tiny, --obj_mesh_dir <dir of enveloping/ + sucking/
+.obj meshes>, --segmentation learned --segmenter_checkpoint P (a
+cli.train_segmenter checkpoint), and --cpu to run on the CPU. A run
+writes the reference's run tree (utils/logger.py): info/config.json, the
+ten transitions logs, scene-0 imagery every --imagery_every iterations,
+checkpoints under models/ckpt every 50 training iterations and at the
+end, and models/snapshot.
 
 `main(argv)` parses the flags; `run(cfg)` takes an ExperimentConfig, so a
 caller can change what no flag reaches (depth, phase lengths).
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from smg_tpu_torch.core import camera as cam
+from smg_tpu_torch.perception import learned
 from smg_tpu_torch.render import persp
 from smg_tpu_torch.train import checkpoints
 from smg_tpu_torch.train.loop import StepMetrics, init_loop, train_step
@@ -176,6 +180,14 @@ def run(cfg: cfg_mod.ExperimentConfig) -> dict:
     dev = resolve_device(cfg.device)
     print(f"device: {dev}"
           + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
+    if cfg.env.segmentation == "learned" and cfg.loop.segmenter is None:
+        # The trained SlotSegmenter becomes the observation front end (the
+        # Mask-R-CNN-parity path, reference main.py:139).
+        if not cfg.segmenter_checkpoint:
+            raise SystemExit("--segmentation learned requires --segmenter_checkpoint")
+        seg = learned.load_segmenter(cfg.segmenter_checkpoint, dev)
+        cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, segmenter=seg))
+        print(f"segmenter loaded from: {cfg.segmenter_checkpoint}")
     trainer = Trainer(cfg.train, device=dev)
     logger = Logger(cfg.continue_logging, cfg.logging_directory)
     try:

@@ -5,10 +5,9 @@ The counterpart of the reference's connectivity check
 (code/simulation/simpleTest.py: connect, count scene objects, stream a
 value): there is no server to connect to, so the smoke test builds scenes
 on the device, renders and segments them, picks each scene's action with
-a freshly initialised network, executes the primitives and reports the
-outcomes. The JAX smoke test scores with the tiny trunk, which the port
-does not have (ROADMAP.md section 1, item 8); this one scores with the
-production DenseNet-121 trunks at input 224.
+a freshly initialised network with the tiny trunk at input 224 (as the
+JAX smoke test does, smg_tpu/cli/smoke.py:37), executes the primitives
+and reports the outcomes.
 
     python -m smg_tpu_torch.cli.smoke [--batch 4] [--seed 0] [--cpu]
 """
@@ -73,7 +72,7 @@ def main(argv=None) -> None:
     t0 = time.time()
     dev = resolve_device("cpu" if args.cpu else "cuda")
     print(f"device: {dev}")
-    trainer = Trainer(TrainConfig(model=ModelConfig(method="reinforcement",
+    trainer = Trainer(TrainConfig(model=ModelConfig(method="reinforcement", trunk="tiny",
                                                     input_size=224)), device=dev)
     smoke(trainer, args.batch, args.seed)
     print(f"smoke ok in {time.time() - t0:.1f}s")

@@ -1,14 +1,16 @@
 """The batched SMG environment: reset, observe, geometry, predicates.
 
-Port of the parts of smg_tpu/envs/smg_env.py that the testing-mode act
-step uses, written for B scenes at once: EnvConfig, resolve_catalogs,
-reset, observe (exact segmentation), masked_scene_depth,
-compute_geometry, ik_ok and episode_done. Primitive execution is
-envs/batched.py::execute_batched.
+Port of smg_tpu/envs/smg_env.py for B scenes at once: EnvConfig,
+resolve_catalogs (procedural catalogs or an --obj_mesh_dir of .obj
+meshes), reset, observe (exact segmentation, or a learned front-end
+through `seg_fn`), masked_scene_depth, compute_geometry, ik_ok and
+episode_done. Primitive execution is envs/batched.py::execute_batched;
+the per-scene `execute` waits for ROADMAP.md section 1, item 3.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 
@@ -37,17 +39,24 @@ class EnvConfig:
     max_episode_success: int = 10
     no_change_limit: int = 3
     settle_steps: int = 250
+    # "exact": the renderer's id buffers; "learned": the SlotSegmenter on
+    # the color + depth heightmaps (LoopConfig.segmenter).
+    segmentation: str = "exact"
     obj_mesh_dir: str = ""
 
 
+@functools.lru_cache(maxsize=8)
 def resolve_catalogs(cfg: EnvConfig):
-    """--obj_mesh_dir -> object catalogs (smg_env.py:71-90). Only the
-    procedural catalogs are ported: the datasets/{training,testing}
-    sentinels and "" (is_testing's catalog)."""
+    """--obj_mesh_dir -> object catalogs (smg_env.py:71-90), cached per
+    config so a mesh directory is fitted once: a directory with
+    enveloping/ + sucking/ .obj meshes goes through utils/meshes.py; the
+    datasets/{training,testing} sentinels select the procedural catalog of
+    that name, and "" is_testing's."""
     d = cfg.obj_mesh_dir
     if d and os.path.isdir(os.path.join(d, "enveloping")):
-        raise NotImplementedError(
-            "--obj_mesh_dir mesh ingest (utils/meshes.py) is not ported yet")
+        from smg_tpu_torch.utils import meshes
+
+        return meshes.load_object_sets(d)
     base = os.path.basename(os.path.normpath(d)) if d else ""
     if d and base not in ("training", "testing"):
         raise FileNotFoundError(
@@ -94,10 +103,16 @@ def reset(gen: torch.Generator, B: int, cfg: EnvConfig, device) -> Scene:
     )
 
 
-def observe(scenes: Scene) -> Observation:
-    """Render + exact segmentation (smg_env.py:138-151)."""
+def observe(scenes: Scene, seg_fn=None) -> Observation:
+    """Render + segment (smg_env.py:138-151). `seg_fn(color_hm (B, H, W,
+    3), depth_hm (B, H, W)) -> Segmentation` replaces the exact id-buffer
+    path with a learned front-end (the Mask-R-CNN analog, reference
+    main.py:139); None keeps the exact path."""
     depth, ids, color = ortho.render_heightmap(scenes.objects)
-    seg = seg_mod.segment(scenes.objects, ids)
+    if seg_fn is None:
+        seg = seg_mod.segment(scenes.objects, ids)
+    else:
+        seg = seg_fn(color, depth)
     return Observation(depth_hm=depth, color_hm=color, seg=seg)
 
 

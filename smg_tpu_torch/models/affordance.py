@@ -1,13 +1,14 @@
 """Two-stream affordance networks (port of smg_tpu/models/affordance.py).
 
-Three DenseNet-121 trunks (grasp / suction / grasp-then-suction) and three
-heads; style 2 reads the suction head, as the reference does
-(models.py:144; the JAX package's default tied_ets_head=True). Eval scoring
-runs through models/fast_trunk.py::score_eval, the update's train-mode
-forward through ::score_train; `AffordanceNet.score` is the module eval
-forward, the oracle they are held to. The JAX options no caller
-sets (the tiny trunk, num_rotations > 1, an untied ETS head) are not
-ported.
+Three trunks (grasp / suction / grasp-then-suction), DenseNet-121 or with
+ModelConfig.trunk = "tiny" the tiny trunk, and three heads; style 2 reads
+the suction head, as the reference does (models.py:144; the JAX package's
+default tied_ets_head=True). DenseNet-121 eval scoring runs through
+models/fast_trunk.py::score_eval, the update's train-mode forward
+through ::score_train; `AffordanceNet.score` is the module eval forward,
+the oracle they are held to, and the tiny trunk's eval scoring (as in the
+JAX trainer, whose fast paths are DenseNet-only). The JAX options no
+caller sets (num_rotations > 1, an untied ETS head) are not ported.
 """
 
 from __future__ import annotations
@@ -24,9 +25,9 @@ from smg_tpu_torch.models.densenet import (
     BLOCK_CONFIG,
     BN_EPS,
     BN_MOMENTUM,
-    DenseNetTrunk,
     bn_eval,
     he_init_,
+    make_trunk,
     no_tf32,
 )
 
@@ -41,6 +42,7 @@ STYLE_ETS = 2
 @dataclass(frozen=True)
 class ModelConfig:
     method: str = "reinforcement"   # 'reactive' | 'reinforcement'
+    trunk: str = "densenet121"      # 'densenet121' | 'tiny'
     input_size: int = 640
     dtype: str = "bfloat16"
     block_config: Sequence[int] = BLOCK_CONFIG
@@ -87,7 +89,7 @@ class AffordanceNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         dt = cfg.tdtype
-        mk = lambda: DenseNetTrunk(cfg.block_config, dt)  # noqa: E731
+        mk = lambda: make_trunk(cfg.trunk, dt, cfg.block_config)  # noqa: E731
         self.suction_trunk = mk()
         self.grasp_trunk = mk()
         self.gs_trunk = mk()
@@ -107,9 +109,9 @@ class AffordanceNet(nn.Module):
     @torch.no_grad()
     def score_eval(self, scene_img, mask_imgs, style: int,
                    backend: str = "xla_fl") -> torch.Tensor:
-        """Eval scores (B, M, num_out) f32; scene features shared across
-        the M object slots (affordance.py:132-165). backend: see
-        fast_trunk.trunk_features_eval."""
+        """Eval scores (B, M, num_out) f32 of DenseNet-121 trunks; scene
+        features shared across the M object slots (affordance.py:132-165).
+        backend: see fast_trunk.trunk_features_eval."""
         return fast_trunk.score_eval(self.trunk(style), self.head(style),
                                      scene_img, mask_imgs, self.cfg.num_out, backend)
 

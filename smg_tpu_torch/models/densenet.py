@@ -1,4 +1,5 @@
-"""DenseNet-121 feature trunk as an nn.Module (port of smg_tpu/models/densenet.py).
+"""DenseNet-121 feature trunk and the tiny trunk as nn.Modules (port of
+smg_tpu/models/densenet.py).
 
 The module holds torch-layout parameters (OIHW convs, BatchNorm2d with
 running statistics) under the Flax module's names, so the bridge maps one
@@ -15,6 +16,12 @@ eval backends are held to, never on the main path.
 
 `block_config` is an argument, as in the Flax DenseNetTrunk
 (densenet.py:99), so that tests can build a shallow trunk.
+
+`TinyTrunk` (densenet.py:135-162) is the small stride-32 convnet with the
+same 1024-channel output, selected by ModelConfig.trunk = "tiny"; it runs
+on no kernel of the port (the JAX package computes it outside any Pallas
+kernel too): its eval forward is `TinyTrunk.forward`, its train forward
+models/fast_trunk.py::tiny_features_train. `make_trunk` builds either.
 """
 
 from __future__ import annotations
@@ -149,6 +156,49 @@ class DenseNetTrunk(nn.Module):
                     h = getattr(self, f"transition{i + 1}")(h)
             h = bn_eval(h, self.norm5, dt)
         return h.permute(0, 2, 3, 1)
+
+
+TINY_WIDTHS = (32, 64, 128, 256, 512)
+TINY_FEATURES = 1024
+
+
+class TinyTrunk(nn.Module):
+    """Five stride-2 3x3 convs (32-512) with BatchNorm and ReLU, then a 1x1
+    to 1024: (N, S, S, 3) -> (N, S/32, S/32, 1024), as DenseNetTrunk."""
+
+    num_features = TINY_FEATURES
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        c = 3
+        for i, w in enumerate(TINY_WIDTHS):
+            self.add_module(f"conv{i}", nn.Conv2d(c, w, 3, stride=2, padding=1, bias=False))
+            self.add_module(f"norm{i}", _bn(w))
+            c = w
+        self.proj = nn.Conv2d(c, TINY_FEATURES, 1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The module eval forward (running-average BatchNorm): NHWC in
+        self.dtype, as Flax's TinyTrunk.apply(..., train=False)."""
+        dt = self.dtype
+        with no_tf32():
+            h = x.to(dt).permute(0, 3, 1, 2)
+            for i in range(len(TINY_WIDTHS)):
+                h = F.conv2d(h, getattr(self, f"conv{i}").weight.to(dt), stride=2, padding=1)
+                h = torch.relu(bn_eval(h, getattr(self, f"norm{i}"), dt))
+            h = F.conv2d(h, self.proj.weight.to(dt))
+        return h.permute(0, 2, 3, 1)
+
+
+def make_trunk(kind: str, dtype: torch.dtype = torch.bfloat16,
+               block_config: Sequence[int] = BLOCK_CONFIG) -> nn.Module:
+    """The trunk of ModelConfig.trunk: "densenet121" (of block_config) or "tiny"."""
+    if kind == "densenet121":
+        return DenseNetTrunk(block_config, dtype)
+    if kind == "tiny":
+        return TinyTrunk(dtype)
+    raise ValueError(f"unknown trunk '{kind}'")
 
 
 def he_init_(module: nn.Module, generator: torch.Generator) -> None:

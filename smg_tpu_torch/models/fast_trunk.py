@@ -42,8 +42,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from smg_tpu_torch.models.densenet import (BN_EPS, BN_MOMENTUM, GROWTH_RATE, DenseNetTrunk,
-                                          backend_flag)
+from smg_tpu_torch.models.densenet import (BN_EPS, BN_MOMENTUM, GROWTH_RATE, TINY_WIDTHS,
+                                          DenseNetTrunk, TinyTrunk, backend_flag, no_tf32)
 from smg_tpu_torch.ops import conv2 as k5
 from smg_tpu_torch.ops import dense_block as k7
 from smg_tpu_torch.ops import dense_layer as k2
@@ -230,6 +230,9 @@ def trunk_features_eval(trunk: DenseNetTrunk, x: torch.Tensor,
     norm5 stays plain on the xla backends. The JAX-only lowerings ("xla",
     "xla_conv", "xla_s2d") have no kernel and are not ported.
     """
+    if not isinstance(trunk, DenseNetTrunk):
+        raise TypeError("the eval backends run DenseNet-121 trunks only; the tiny "
+                        "trunk scores through AffordanceNet.score")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend == "pallas":
@@ -383,6 +386,23 @@ def trunk_features_train(trunk: DenseNetTrunk, x: torch.Tensor, conv2: str = "co
     return (xf * a5 + b5).to(dt), moments
 
 
+def tiny_features_train(trunk: TinyTrunk, x: torch.Tensor):
+    """Train-mode tiny trunk with per-image BN (Flax TinyTrunk under
+    train=True at batch 1 per stream, densenet.py:146-163): (N, S, S, 3) ->
+    ((N, S/32, S/32, 1024), moments)."""
+    dt = trunk.dtype
+    moments: list = []
+    with no_tf32():
+        h = x.to(dt).permute(0, 3, 1, 2)
+        for i in range(len(TINY_WIDTHS)):
+            y = F.conv2d(h, getattr(trunk, f"conv{i}").weight.to(dt), stride=2, padding=1)
+            yf = y.permute(0, 2, 3, 1).float()
+            a, b = _bn_train(yf, getattr(trunk, f"norm{i}"), moments)
+            h = torch.relu(yf * a + b).to(dt).permute(0, 3, 1, 2)
+        out = F.conv2d(h, trunk.proj.weight.to(dt))
+    return out.permute(0, 2, 3, 1), moments
+
+
 def head_train(head, x: torch.Tensor, num_out: int):
     """AffordanceHead train forward with per-image BN (fast_trunk.py:909-928):
     (N, h, w, C) -> ((N, num_out) f32, moments)."""
@@ -406,7 +426,8 @@ def _running(old: torch.Tensor, stat: torch.Tensor) -> torch.Tensor:
 def score_train(trunk, head, scene_img: torch.Tensor, mask_img: torch.Tensor,
                 num_out: int, conv2: str = "conv"):
     """Train-mode AffordanceNet.score of n scenes, one exec mask each
-    (fast_trunk.py:931-963 per scene, as the update calls it with batch 1).
+    (fast_trunk.py:931-963 per scene, as the update calls it with batch 1);
+    a tiny trunk goes through tiny_features_train.
 
     scene_img, mask_img (n, S, S, 3). The 2n streams go through one trunk
     call (per-image BN keeps them independent); the head reads the
@@ -416,7 +437,14 @@ def score_train(trunk, head, scene_img: torch.Tensor, mask_img: torch.Tensor,
     feeds the mask pass's, as the two sequential Flax calls do.
     """
     n = scene_img.shape[0]
-    feats, moments = trunk_features_train(trunk, torch.cat([scene_img, mask_img]), conv2)
+    both = torch.cat([scene_img, mask_img])
+    if isinstance(trunk, TinyTrunk):
+        if conv2 != "conv":
+            raise ValueError(f"fast_train_conv2={conv2!r}: the tiny trunk has no dense "
+                             "layers; it trains through its module form ('conv')")
+        feats, moments = tiny_features_train(trunk, both)
+    else:
+        feats, moments = trunk_features_train(trunk, both, conv2)
     out, head_moments = head_train(head, torch.cat([feats[:n], feats[n:]], dim=-1),
                                    num_out)
     new = {}

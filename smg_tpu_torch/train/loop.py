@@ -8,14 +8,18 @@ PE/OO geometry -> batched primitive execution -> counters -> auto-reset
 with a settle. In testing (env.is_testing=True, the serving path) the step
 makes no label and no update.
 
-The port has only the batched executor (no LoopConfig.executor) and the
-exact segmentation; its initial reset settles through the batched stepper
-too (the JAX package's per-scene settle, loop.py:172-174, is pinned equal
-to it).
+Segmentation is the renderer's exact id buffers, or with
+env.segmentation="learned" the SlotSegmenter of LoopConfig.segmenter,
+one batched forward per step (loop.py:193-209). The port has only the
+batched executor (no LoopConfig.executor: the per-scene path waits for
+ROADMAP.md section 1, item 3); its initial reset settles through the
+batched stepper too (the JAX package's per-scene settle,
+loop.py:172-174, is pinned equal to it).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import torch
@@ -23,6 +27,7 @@ import torch
 from smg_tpu_torch.envs import batched as batched_env
 from smg_tpu_torch.envs import primitives as prim
 from smg_tpu_torch.envs import smg_env as env
+from smg_tpu_torch.perception import learned
 from smg_tpu_torch.physics import scene as scene_mod
 from smg_tpu_torch.physics import stepper
 from smg_tpu_torch.physics.state import Scene, _Batched
@@ -42,6 +47,11 @@ class LoopConfig:
     explore_rate_decay: bool = False  # main.py:443
     reset_settle_steps: int = 100
     primitive: prim.PrimitiveParams = field(default_factory=prim.PrimitiveParams)
+    # The learned front end (a SlotSegmenter) read when env.segmentation
+    # == "learned"; frozen during grasp training (it trains separately,
+    # cli/train_segmenter.py). Left out of eq and hash.
+    segmenter: learned.SlotSegmenter | None = field(default=None, compare=False,
+                                                   hash=False)
 
 
 @dataclass
@@ -152,7 +162,13 @@ def train_step(trainer: Trainer, cfg: LoopConfig, state: LoopState,
     dev = state.scenes.device
 
     # --- Observe (main.py:108-117) ---
-    obs = env.observe(state.scenes)
+    seg_fn = None
+    if ecfg.segmentation == "learned":
+        if cfg.segmenter is None:
+            raise ValueError("env.segmentation == 'learned' requires "
+                             "LoopConfig.segmenter = a SlotSegmenter")
+        seg_fn = functools.partial(learned.predict_segmentation, cfg.segmenter)
+    obs = env.observe(state.scenes, seg_fn)
     scene_depths = env.masked_scene_depth(obs)
     masks = obs.seg.masks
     valid = obs.seg.valid

@@ -19,6 +19,12 @@
   executed style's trunk and head take each scene's update and are then
   averaged over all B scenes, invalid ones included.
 
+With ModelConfig.trunk = "tiny", eval scoring goes through the module
+forward (AffordanceNet.score) and the update through fast_trunk's tiny
+train forward, as the JAX trainer's fast paths are DenseNet-only
+(trainer.py:230-253, :505-530); the eval backends and fast_train_conv2
+"pk" raise for it.
+
 The Trainer owns the online net, the target net (a copy whose BatchNorm
 buffers freeze between syncs) and torch.optim.Adam; TrainerState carries
 the iteration. Master weights are f32; the trunks compute in the model's
@@ -124,6 +130,13 @@ class Trainer:
     def _prep(self, depth):
         return aff.preprocess_depth(depth, self.cfg.model)
 
+    def _score_eval(self, net: AffordanceNet, scene_img, mask_imgs, style: int):
+        """Eval scores (B, M, num_out): the kernels' path for DenseNet-121,
+        the module forward for the tiny trunk."""
+        if self.cfg.model.trunk == "tiny":
+            return net.score(scene_img, mask_imgs, style)
+        return net.score_eval(scene_img, mask_imgs, style)
+
     def _postprocess(self, out: torch.Tensor) -> torch.Tensor:
         """(..., num_out) -> (..., 1): P(class 0) for reactive, raw Q
         for reinforcement (trainer.py:360-368)."""
@@ -140,9 +153,9 @@ class Trainer:
         C = scene_depth.shape[0]
         scene_img = self._prep(scene_depth)                     # (C, S, S, 3)
         obj_ins = self._prep(scene_depth[:, None] * masks)      # (C, N, S, S, 3)
-        gra_conf = self._postprocess(model.score_eval(scene_img, obj_ins,
+        gra_conf = self._postprocess(self._score_eval(model, scene_img, obj_ins,
                                                       STYLE_GRASP))
-        suc_conf = self._postprocess(model.score_eval(scene_img, obj_ins,
+        suc_conf = self._postprocess(self._score_eval(model, scene_img, obj_ins,
                                                       STYLE_SUCTION))
         gs_conf = torch.full((C, N_SLOTS, N_SLOTS), -100.0,
                              device=scene_depth.device)
@@ -151,7 +164,7 @@ class Trainer:
             pj = torch.as_tensor(_PJ, device=masks.device)
             pair_depths = scene_depth[:, None] * (masks[:, pi] | masks[:, pj])
             pair_ins = self._prep(pair_depths)                  # (C, P, S, S, 3)
-            o = model.score_eval(scene_img, pair_ins, STYLE_ETS)
+            o = self._score_eval(model, scene_img, pair_ins, STYLE_ETS)
             gs_conf[:, pi, pj] = self._postprocess(o)[..., 0]
         neg = torch.full_like(gra_conf, -1e9)
         return SceneScores(
@@ -236,7 +249,7 @@ class Trainer:
         out = torch.zeros(styles.shape[0], device=scene_depths.device)
         for s, idx in self._style_groups(styles):
             sd = scene_depths[idx]
-            o = net.score_eval(self._prep(sd), self._prep(sd * exec_masks[idx])[:, None], s)
+            o = self._score_eval(net, self._prep(sd), self._prep(sd * exec_masks[idx])[:, None], s)
             out[idx] = self._postprocess(o[:, 0])[:, 0]
         return out
 

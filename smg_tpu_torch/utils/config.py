@@ -9,17 +9,20 @@ unchanged, e.g.
     --is_testing --load_snapshot --snapshot_file X --is_cluttered
 
 `--cpu` runs on the CPU; without it the run is on the card (cuda) and
-raises when there is none. Flag values whose modules the port does not
-have yet stop the parse with SystemExit naming the ROADMAP.md item that
-queues them: `--trunk tiny`, `--segmentation learned`, `--data_parallel`
-above 1, `--pretrained_trunks` and an `--obj_mesh_dir` of .obj files.
+raises when there is none. `--obj_mesh_dir` takes a directory with
+enveloping/ and sucking/ .obj meshes (fitted by utils/meshes.py) or the
+reference's datasets/{training,testing} names; `--trunk tiny` selects the
+small trunk; `--segmentation learned` reads `--segmenter_checkpoint`.
+Flag values whose modules the port does not have yet stop the parse with
+SystemExit naming the ROADMAP.md item that queues them: `--data_parallel`
+above 1 and `--pretrained_trunks`.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, replace
 
 from smg_tpu_torch.envs.smg_env import EnvConfig
 from smg_tpu_torch.models.affordance import ModelConfig
@@ -50,8 +53,10 @@ class ExperimentConfig:
 
     def to_dict(self) -> dict:
         """info/config.json: the JAX package's keys where the port has the
-        field (tests/test_torch_cli.py lists those only one side has)."""
-        return asdict(self)
+        field (tests/test_torch_cli.py lists those only one side has); the
+        segmenter module is left out (segmenter_checkpoint says where it
+        came from)."""
+        return asdict(replace(self, loop=replace(self.loop, segmenter=None)))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,9 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--is_sim", action="store_true", default=True,
                    help="run in simulation (always true: the sim is on-device)")
     p.add_argument("--obj_mesh_dir", default="datasets/training",
-                   help="object set: the reference's datasets/{training,testing} "
-                        "names select the matching procedural catalog; a dir "
-                        "of .obj files is not supported yet")
+                   help="object set: a dir with enveloping/ + sucking/ .obj "
+                        "subdirs (native mesh-fitter ingest), or the "
+                        "reference's datasets/{training,testing} names -> the "
+                        "matching procedural catalog")
     p.add_argument("--num_obj", type=int, default=10,
                    help="accepted for command-line parity; the reference "
                         "stores but never uses it")
@@ -107,9 +113,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--segmentation", default="exact",
                    choices=["exact", "learned"],
                    help="instance segmentation: the renderer's exact "
-                        "id-buffers ('learned' is not supported yet)")
+                        "id-buffers, or the trained SlotSegmenter on the "
+                        "color + depth heightmaps")
     p.add_argument("--segmenter_checkpoint", default="",
-                   help="segmenter params for --segmentation learned")
+                   help="segmenter params (cli.train_segmenter) for "
+                        "--segmentation learned")
     p.add_argument("--pretrained_trunks", default="",
                    help="pretrained trunk checkpoint (not supported yet)")
     p.add_argument("--imagery_every", type=int, default=1,
@@ -131,16 +139,15 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
             "--heightmap_resolution: only the reference default 0.002 is "
             f"supported (got {args.heightmap_resolution})"
         )
-    if args.trunk == "tiny":
-        raise _not_ported("--trunk tiny", "item 8, the tiny trunk")
-    if args.segmentation == "learned":
-        raise _not_ported("--segmentation learned", "item 4, the learned segmenter")
     if args.data_parallel > 1:
         raise _not_ported("--data_parallel > 1", "item 7, data parallelism")
     if args.pretrained_trunks:
         raise _not_ported("--pretrained_trunks", "item 6, pretraining")
     if os.path.isdir(os.path.join(args.obj_mesh_dir, "enveloping")):
-        raise _not_ported("--obj_mesh_dir with .obj files", "item 2, mesh ingest")
+        for sub in ("enveloping", "sucking"):
+            d = os.path.join(args.obj_mesh_dir, sub)
+            if not (os.path.isdir(d) and any(f.endswith(".obj") for f in os.listdir(d))):
+                raise SystemExit(f"--obj_mesh_dir: no .obj meshes under {d}")
     env = EnvConfig(
         is_cluttered=args.is_cluttered,
         is_testing=args.is_testing,
@@ -149,9 +156,11 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         is_oo=args.is_oo,
         method=args.method,
         step_limit=args.step,
+        segmentation=args.segmentation,
         obj_mesh_dir=args.obj_mesh_dir,
     )
-    model = ModelConfig(method=args.method, input_size=args.input_size)
+    model = ModelConfig(method=args.method, trunk=args.trunk,
+                        input_size=args.input_size)
     train = TrainConfig(
         model=model,
         method=args.method,

@@ -4,7 +4,8 @@ the CPU.
 - Flags: the reference command lines give the same info/config.json keys
   and values under both packages' parse_args, apart from the fields that
   only one side has (listed below); the flag values whose modules are not
-  ported stop with SystemExit naming the ROADMAP item.
+  ported stop with SystemExit naming the ROADMAP item, and a mesh
+  directory without .obj meshes stops.
 - Log rows: one numpy StepMetrics through JAX's log_step_metrics and the
   port's (directly, and through fetch_metrics from tensors) gives
   byte-identical .log.txt files, across a step with finished episodes and
@@ -50,6 +51,8 @@ from smg_tpu_torch.utils import config as cfg_mod
 from smg_tpu_torch.utils import native
 from smg_tpu_torch.utils.logger import LOG_NAMES, Logger
 
+torch.set_num_threads(1)  # as test_torch_parity_helpers.py: one thread per xdist worker
+
 REPO = Path(__file__).resolve().parent.parent
 
 REFERENCE_CMDS = [
@@ -63,14 +66,15 @@ REFERENCE_CMDS = [
     "--imagery_every 0 --trunk densenet121 --input_size 224 --training_episode 800",
     "--batch_size 64 --input_size 640 --seed 7 --step 30 --target_update_freq 5 "
     "--future_reward_discount 0.7 --continue_logging --logging_directory x",
+    "--is_sim --method reinforcement --is_pe --is_oo --batch_size 32 --trunk tiny "
+    "--segmentation learned --segmenter_checkpoint s --training_episode 160",
 ]
 # info/config.json fields that only one package has.
 JAX_ONLY = {
-    ("train", "model", "trunk"), ("train", "model", "num_rotations"),
+    ("train", "model", "num_rotations"),
     ("train", "model", "tied_ets_head"), ("train", "fast_eval"),
     ("train", "fast_train"), ("train", "unroll_styles"),
-    ("env", "segmentation"), ("loop", "env", "segmentation"),
-    ("loop", "executor"), ("loop", "segmenter"),
+    ("loop", "executor"),
 }
 PORT_ONLY = {("train", "model", "block_config"), ("device",)}
 
@@ -118,8 +122,6 @@ def test_device_flag():
 
 
 @pytest.mark.parametrize("argv,item", [
-    ("--trunk tiny", "item 8"),
-    ("--segmentation learned --segmenter_checkpoint s", "item 4"),
     ("--data_parallel 2", "item 7"),
     ("--pretrained_trunks p", "item 6"),
     ("--heightmap_resolution 0.004", "heightmap_resolution"),
@@ -130,9 +132,20 @@ def test_unported_flags_stop(argv, item):
 
 
 def test_mesh_dir_stops(tmp_path):
+    """A mesh directory without .obj meshes stops the parse (one with them
+    parses: tests/test_torch_meshes.py)."""
     (tmp_path / "enveloping").mkdir()
-    with pytest.raises(SystemExit, match="item 2"):
+    with pytest.raises(SystemExit, match="no .obj meshes"):
         cfg_mod.parse_args(["--obj_mesh_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    ("--trunk tiny", ("train", "model", "trunk"), "tiny"),
+    ("--segmentation learned --segmenter_checkpoint s", ("env", "segmentation"), "learned"),
+])
+def test_ported_flags_parse(argv, field, value):
+    cfg = cfg_mod.parse_args(argv.split())
+    assert _flat(cfg.to_dict())[field] == value
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,8 @@ import torch
 from smg_tpu.models import fast_trunk as jft
 from smg_tpu_torch.ops import dense_layer_train as k6
 
+torch.set_num_threads(1)  # as test_torch_parity_helpers.py: one thread per xdist worker
+
 
 def _rel_l2(got, ref):
     g = np.asarray(got, np.float32).ravel()

@@ -11,6 +11,8 @@ JAX is absent — without the JAX-side conftest:
 import pytest
 import torch
 
+torch.set_num_threads(1)  # as test_torch_parity_helpers.py: one thread per xdist worker
+
 pytestmark = pytest.mark.gpu
 
 TOL_BF16 = 2.0 ** -6
@@ -598,3 +600,39 @@ def test_render_rgbd_full_frame(dev):
     assert int((wd < 0.45).sum()) > 1000, "objects in view"
     assert not bool((off & ~edge).any()), "differs off the silhouettes"
     assert float(off.float().mean()) <= 2e-3, int(off.sum())
+
+
+def test_segmenter_on_card(dev):
+    """The SlotSegmenter at bf16 on the card against the same module on the
+    CPU (bf16 convolutions, f32 GroupNorm and logits on both): logits
+    within 2^-4 of the largest |logit| (bf16 roundings of two convolution
+    libraries, through six bf16 layers), the predicted slot ids equal on
+    all but 1% of the pixels."""
+    from smg_tpu_torch.perception import learned
+
+    model = learned.init_segmenter(torch.Generator().manual_seed(0), device="cpu")
+    x = torch.rand(2, 4, 224, 224, generator=torch.Generator().manual_seed(1))
+    x[:, 3] *= 0.06
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(dev)(x.to(dev)).cpu()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 2.0 ** -4, err
+    flips = float((got.argmax(1) != want.argmax(1)).float().mean())
+    assert flips <= 0.01, flips
+
+
+def test_nms_on_card(dev):
+    """The batched NMS on the card keeps exactly the CPU's boxes."""
+    from smg_tpu_torch.perception import nms
+
+    g = torch.Generator().manual_seed(5)
+    xy = torch.randint(0, 200, (256, 12, 2), generator=g).float()
+    wh = torch.randint(0, 110, (256, 12, 2), generator=g).float()
+    boxes = torch.stack([xy, xy + wh], dim=2)
+    valid = torch.rand(256, 12, generator=g) < 0.85
+    want = nms.nms(boxes, valid, 0.40, 16.0, 10035.2)
+    got = nms.nms(boxes.to(dev), valid.to(dev), 0.40, 16.0, 10035.2).cpu()
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < int(valid.sum())

@@ -15,6 +15,13 @@ import jax
 import numpy as np
 import torch
 
+# One intra-op thread per process: the tier-1 run puts six xdist workers on
+# the machine's cores, and torch's default of one thread per core in each
+# of them oversubscribes the CPU (a 250-step settle then takes minutes
+# instead of seconds). Every tests/test_torch_*.py pins it, through this
+# import or by the same call.
+torch.set_num_threads(1)
+
 
 def to_numpy_tree(x):
     """A JAX value / dataclass pytree / dict -> nested dicts of numpy."""

@@ -16,6 +16,8 @@ from smg_tpu_torch.ops import contact, conv2, dense_layer
 from smg_tpu_torch.ops import dense_layer_train as k6
 from smg_tpu_torch.ops import transition as k3
 
+torch.set_num_threads(1)  # as test_torch_parity_helpers.py: one thread per xdist worker
+
 SMS = conv2.H100_SMS
 SMEM_227KB = 232448
 
