@@ -50,13 +50,13 @@
    oracle's largest |value|.
 7. The CLI path, each entry point in a subprocess with its real argv and
    the launch counts set to 0 in it: `python -m smg_tpu_torch.cli.main`
-   trains 3 iterations at b32 with the held flags (--method reinforcement
+   trains 2 iterations at b32 with the held flags (--method reinforcement
    --is_ets --is_pe --is_oo) and scene-0 imagery every iteration, then the
    run tree is checked (config.json, the ten transitions logs with B rows
    per step where the layout has them, their .bin mirrors read back equal
    when the native library loaded, one checkpoint, the snapshot, the
    imagery with a 480 x 640 RGB-D frame); it resumes with
-   --continue_logging for 1 iteration (numbered 4, a second checkpoint)
+   --continue_logging for 1 iteration (numbered 3, a second checkpoint)
    and tests 1 iteration with --is_testing --load_snapshot; K1-K4's
    launches summed over the three runs.
 8. The perception path: the SlotSegmenter's forward (b32) and training
@@ -68,9 +68,27 @@
    --perspective arms), cli.main with --segmentation learned on that
    checkpoint (a scene acts on a valid learned mask), cli.main --trunk
    tiny, and cli.smoke (tiny trunk); K1-K4's launches summed over them.
-9. Prints the kernel table as one JSON line (each kernel's launches also
-   per path: act, train, parity, cli, perception), the card line, and last
-   {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
+9. Trunk pretraining: one reconstruction step at b16 (its batch and its
+   step, CUDA events and device time); `cli.pretrain_trunks` 20 steps at
+   b16 in a subprocess (the mean of the last 5 losses under the first
+   5's); the checkpoint loaded into a trainer's six trunks, equal; then
+   `cli.main` with the held flags and --pretrained_trunks for 2
+   iterations (target trunks equal the checkpoint's, online trunks within
+   one Adam step of it); K1-K4's launches.
+10. The per-scene executor: from one b32 testing state, an act step with
+   executor="vmap" and one with "batched" (times, every scene's success,
+   their agreement reported); one physics step's contact force and torque
+   of the two formulations from the same state, within 1e-5 of the
+   largest; eager physics-step times; K1-K4's launches (K1 none in the
+   vmap step).
+11. The sharded step: in a subprocess with WORLD_SIZE 1 over NCCL, 3 b32
+   training steps under fast_train_conv2="pk" through make_sharded_step,
+   then the plain train_step from the same seed: the losses bit-equal;
+   K1-K4 and K6's launches.
+12. Prints the kernel table as one JSON line (each kernel's launches also
+   per path: act, train, parity, cli, perception, pretrain, vmap,
+   sharded), the card line, and last {"ok": true, "device": {...}}. Any
+   failed check raises (exit code != 0).
 
 Options: `--out DIR` writes the details (chip_smoke.json, and with
 --profile the profiler table) to DIR; `--profile` adds one act step under
@@ -86,6 +104,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1613,7 +1632,7 @@ def reference_score(trainer, obs):
 # The CLI path: python -m smg_tpu_torch.cli.main / .smoke in subprocesses
 # ---------------------------------------------------------------------------
 
-CLI_TRAIN_ITERS = 3
+CLI_TRAIN_ITERS = 2
 CLI_FLAGS = ("--is_sim", "--method", "reinforcement", "--is_ets", "--is_pe", "--is_oo",
              "--batch_size", str(B_MAIN))
 # Logs with B rows per step; clearance and episode_success get a row per
@@ -1937,6 +1956,309 @@ def drive_perception_path(dev, kernels):
     DETAIL["perception_path"] = {"launches": total, "seconds": seconds, **detail}
 
 
+# ---------------------------------------------------------------------------
+# Trunk pretraining, the per-scene executor, the sharded step
+# ---------------------------------------------------------------------------
+
+PRETRAIN_STEPS = 20
+PRETRAIN_BATCH = 16
+PRETRAIN_KERNELS = ("K1", "K2", "K3", "K4")
+VMAP_KERNELS = ("K1", "K2", "K3", "K4")
+SHARDED_KERNELS = ("K1", "K2", "K3", "K4", "K6a", "K6b")
+FORCE_TOL = 1e-5
+
+
+def _trunk_state(net, part: str) -> dict:
+    return {k: v.detach().cpu() for k, v in getattr(net, part).state_dict().items()}
+
+
+def phase_pretrain_step(dev) -> dict:
+    """One reconstruction step at b16 (DenseNet-121, 224, bf16): its batch
+    (16 scenes spawned, a 50-step settle, rendered, masked) and its
+    train-mode forward, backward and Adam step, each by CUDA events around
+    an eager call and by device time (torch.profiler, kernels summed)."""
+    from smg_tpu_torch.models.affordance import ModelConfig
+    from smg_tpu_torch.train import pretrain
+
+    cfg = pretrain.PretrainConfig(model=ModelConfig(input_size=224))
+    model = pretrain.ReconstructionModel(cfg).to(dev)
+    pretrain.init_reconstruction(model, torch.Generator(device=dev).manual_seed(SEED))
+    opt = pretrain.new_optimizer(model)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    batch_fn = pretrain.make_batch_fn(cfg)
+    batch = batch_fn(gen, PRETRAIN_BATCH)
+    calls = {"batch": lambda: batch_fn(gen, PRETRAIN_BATCH),
+             "step": lambda: pretrain.pretrain_step(model, opt, *batch)}
+    out = {}
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = cuda_ms(fn, reps=5, warmup=1)
+        out[f"{name}_device_ms"] = sum(_profile_by_kernel(fn, 3).values())
+    print("pretrain at b16 (224, bf16): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def drive_pretrain_path(dev, kernels):
+    """python -m smg_tpu_torch.cli.pretrain_trunks (DenseNet-121, 224) for
+    PRETRAIN_STEPS steps at b16 in a subprocess, its loss falling (the
+    mean of the last 5 below the first 5's, tests/test_pretrain.py:39-62);
+    the checkpoint into a fresh trainer's six trunks (online and target),
+    equal; then cli.main with the held flags and --pretrained_trunks for
+    two training iterations: its target trunks equal the checkpoint's and
+    its online trunks sit within one Adam step of them (the first update
+    is on the blank previous step, a zero gradient)."""
+    import tempfile
+
+    from smg_tpu_torch.train import checkpoints
+    from smg_tpu_torch.train.pretrain import TRUNK_PARTS
+    from smg_tpu_torch.train.prod_config import make_prod_trainer
+
+    total = {name: 0 for name in launch_counters()}
+    detail = {"step": phase_pretrain_step(dev)}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smg_pretrain_") as td:
+        tmp = Path(td)
+        ckpt = str(tmp / "trunk.pt")
+        out, counts, detail["pretrain_seconds"] = run_cli(
+            "smg_tpu_torch.cli.pretrain_trunks",
+            ["--steps", str(PRETRAIN_STEPS), "--batch_size", str(PRETRAIN_BATCH),
+             "--out", ckpt], tmp, "pretrain")
+        for name, c in counts.items():
+            total[name] += c
+        res = _json_line(out)
+        losses, step_ms = res["losses"], res["step_ms"]
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        print(f"pretrain losses: {', '.join(f'{x:.4f}' for x in losses)}")
+        print(f"pretrain ms per step (CUDA events): median {statistics.median(step_ms[1:]):.1f}"
+              f" [{', '.join(f'{x:.1f}' for x in step_ms)}]")
+        check(all(math.isfinite(x) for x in losses), "pretrain: non-finite loss")
+        check(last < first, f"pretrain: the loss did not fall ({first:.4f} -> {last:.4f})")
+        detail.update(losses=losses, step_ms=step_ms, first5=first, last5=last)
+
+        pre = {k[len("trunk."):]: v for k, v in checkpoints.load_params(ckpt).items()
+               if k.startswith("trunk.")}
+        trainer = make_prod_trainer(B_MAIN, device=dev)
+        trainer.init_state(torch.Generator(device=dev).manual_seed(SEED))
+        checkpoints.load_pretrained(trainer, ckpt)
+        for net in (trainer.model, trainer.target):
+            for part in TRUNK_PARTS:
+                got = _trunk_state(net, part)
+                check(all(torch.equal(got[k], pre[k]) for k in pre),
+                      f"load_pretrained: {part} differs from the checkpoint")
+        del trainer
+
+        run_out, counts, detail["warm_cli_seconds"] = run_cli(
+            "smg_tpu_torch.cli.main",
+            [*CLI_FLAGS, "--pretrained_trunks", ckpt, "--max_iterations", "2",
+             "--imagery_every", "0", "--logging_directory", str(tmp / "warm")], tmp, "warm")
+        for name, c in counts.items():
+            total[name] += c
+        check(f"pretrained trunks loaded from: {ckpt}" in run_out, "the warm run")
+        (run_dir,) = (tmp / "warm").iterdir()
+        saved = torch.load(run_dir / "models" / "ckpt" / "2.pt", map_location="cpu",
+                           weights_only=True)
+        lr = 1e-4
+        steps = {}
+        for part in TRUNK_PARTS:
+            for k, v in pre.items():
+                t = saved["target"][f"{part}.{k}"]
+                check(torch.equal(t, v), f"warm run: target {part}.{k} is not the checkpoint's")
+                if "running" in k or "num_batches" in k:
+                    continue
+                o = saved["model"][f"{part}.{k}"]
+                steps[part] = max(steps.get(part, 0.0), float((o - v).abs().max()))
+        print(f"warm run: target trunks equal the checkpoint's; online trunks' largest "
+              f"move after one Adam step: {steps}")
+        # A style absent from the first step's experience leaves its trunk.
+        check(max(steps.values()) > 0 and all(d <= 1.001 * lr for d in steps.values()),
+              f"warm run: online trunks moved {steps}, want at most lr, one of them > 0")
+        detail["online_move"] = steps
+    detail["seconds"] = time.perf_counter() - t0
+    print("launches in the pretraining path: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in total.items()))
+    for k in kernels:
+        k["launches_pretrain"] = total[k["name"]]
+        if k["name"].split()[0] in PRETRAIN_KERNELS:
+            check(total[k["name"]] > 0, f"{k['name']} was not launched by the pretraining path")
+    DETAIL["pretrain_path"] = {"launches": total, **detail}
+
+
+def _fork_state(state):
+    """A LoopState with its own generator at the same position."""
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return dataclasses.replace(state, generator=gen)
+
+
+def drive_vmap_path(dev, kernels):
+    """The per-scene executor: from one init_loop state at b32 (the
+    production testing config), one act step with executor="vmap" (the
+    dense per-scene contacts, no K1) and one with "batched" (K1); their
+    times and every scene's success, the agreement reported, not gated
+    (K1 sums in another order, and 755 steps of contact are chaotic). Then
+    one physics step's contact force of each formulation from the same
+    state, the gripper lowered into each scene's first object, held to
+    FORCE_TOL of the largest force."""
+    from smg_tpu_torch.physics import stepper
+    from smg_tpu_torch.physics.state import Gripper
+    from smg_tpu_torch.train import loop
+    from smg_tpu_torch.train.prod_config import make_prod_loop_cfg, make_prod_trainer
+
+    trainer = make_prod_trainer(B_MAIN, device=dev)
+    cfg = make_prod_loop_cfg(B_MAIN, is_testing=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    state = loop.init_loop(SEED + 2, trainer, cfg)
+    torch.cuda.synchronize()
+    detail = {"init_s": time.perf_counter() - t0}
+    per_step = {}
+    succ = {}
+    for ex in ("vmap", "batched"):
+        c = dataclasses.replace(cfg, executor=ex)
+        before = read_counts()
+        phases, last = {}, [time.perf_counter()]
+        t0 = last[0]
+        _, m = loop.train_step(trainer, c, _fork_state(state), timer=step_timer(phases, last))
+        seconds = time.perf_counter() - t0
+        after = read_counts()
+        per_step[ex] = {n: after[n] - before[n] for n in after}
+        succ[ex] = ((m.grasp_success > 0) | (m.suction_success > 0)
+                    | (m.gs_success > 0)).cpu()
+        detail[ex] = {"seconds": seconds, "phases": {k: round(v, 6) for k, v in phases.items()},
+                      "success": succ[ex].int().tolist(), "launches": per_step[ex]}
+        print(f"act step, executor {ex}: {seconds:.3f} s  " + "  ".join(
+            f"{k} {v:.3f}" for k, v in phases.items())
+              + f"  successes {int(succ[ex].sum())}/{B_MAIN}: {succ[ex].int().tolist()}")
+    agree = int((succ["vmap"] == succ["batched"]).sum())
+    print(f"vmap against batched: {agree} of {B_MAIN} scenes' successes agree (reported)")
+    detail["success_agreement"] = agree
+    check(per_step["vmap"]["K1 contact sweep"] == 0, "the vmap act step launched K1")
+
+    # One physics step's contact forces, both formulations, same state.
+    sc = state.scenes
+    g = sc.gripper
+    low = Gripper(pos=torch.cat([sc.objects.pos[:, 0, :2], torch.full_like(g.pos[:, :1], 0.06)],
+                                dim=1), yaw=g.yaw + 0.3, tilt=g.tilt, curl=g.curl)
+    tgt = low.replace(pos=low.pos - low.pos.new_tensor([0.0, 0.0, 0.03]))
+    sc = stepper.run_steps_batched(sc.replace(gripper=low), tgt, 3)
+    g_new = stepper._servo_gripper(sc.gripper, tgt, stepper.DEFAULT)
+    f_ref, t_ref = stepper.contact_forces(sc.objects, sc.gripper, g_new)
+    f_k1, t_k1 = stepper.contact_forces_batched(sc.objects, sc.gripper, g_new)
+    errs = {"force": rel_err(f_k1, f_ref), "torque": rel_err(t_k1, t_ref)}
+    fmax = float(f_ref.abs().max())
+    print(f"one physics step, K1 against the per-scene sweep: force err {errs['force']:.3e}, "
+          f"torque err {errs['torque']:.3e} of the largest (force {fmax:.3f} N; "
+          f"bound {FORCE_TOL})")
+    check(fmax > 1.0, "the force check has no contacts")
+    check(errs["force"] <= FORCE_TOL and errs["torque"] <= FORCE_TOL,
+          f"the two contact formulations disagree: {errs}")
+    detail["physics_step"] = {**errs, "largest_force": fmax}
+    detail["physics_step_ms"] = {
+        "per_scene": cuda_ms(lambda: stepper.physics_step(sc, tgt), reps=20),
+        "batched": cuda_ms(lambda: stepper.physics_step_batched(sc, tgt), reps=20)}
+    print("physics step at b32, eager ms (CUDA events): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in detail["physics_step_ms"].items()))
+    torch.cuda.synchronize()
+    total = read_counts()
+    print("launches in the per-scene executor path: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in total.items()))
+    for k in kernels:
+        k["launches_vmap"] = total[k["name"]]
+        if k["name"].split()[0] in VMAP_KERNELS:
+            check(total[k["name"]] > 0, f"{k['name']} was not launched by the per-scene path")
+    for name in ("K2 dense layer", "K3 transition", "K4 stem BN/ReLU/maxpool"):
+        check(per_step["vmap"][name] > 0, f"the vmap act step did not launch {name}")
+    DETAIL["vmap_path"] = {"launches": total, **detail}
+
+
+SHARDED_RUNNER = "import sys, chip_smoke\nchip_smoke.sharded_child(sys.argv[1])\n"
+
+
+def sharded_child(out: str) -> None:
+    """In a process of its own (WORLD_SIZE 1, NCCL): TRAIN_STEPS training
+    steps at b32 under fast_train_conv2="pk" through make_sharded_step,
+    then the plain train_step from the same seed; their losses, times and
+    the sharded run's launch counts to `out`. cuDNN runs its deterministic
+    algorithms in both, so two runs of one function read the same bits."""
+    from smg_tpu_torch.parallel import mesh, sharded
+    from smg_tpu_torch.train import loop
+    from smg_tpu_torch.train.prod_config import make_prod_loop_cfg, make_prod_trainer
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.init_data_parallel(1, "cuda")
+    res = {"world": mesh.world(), "backend": torch.distributed.get_backend()}
+    try:
+        for run in ("sharded", "plain"):
+            trainer = make_prod_trainer(B_MAIN, device=dev, fast_train_conv2="pk")
+            cfg = make_prod_loop_cfg(B_MAIN, is_testing=False)
+            zero_counts()
+            if run == "sharded":
+                state = loop.init_loop(SEED + 3, trainer, cfg, mesh.scene_slice(B_MAIN))
+                step = sharded.make_sharded_step(trainer, cfg)
+            else:
+                state = loop.init_loop(SEED + 3, trainer, cfg)
+                step = lambda s: loop.train_step(trainer, cfg, s)  # noqa: E731
+            losses, seconds = [], []
+            for _ in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                losses.append(float(m.loss))
+                check(m.action.shape == (B_MAIN,), "metrics come back whole")
+            res[run] = {"losses": losses, "loss_bits": [float.hex(x) for x in losses],
+                        "seconds": seconds, "launches": read_counts()}
+            del trainer, state
+            torch.cuda.empty_cache()
+    finally:
+        mesh.shutdown()
+    Path(out).write_text(json.dumps(res))
+
+
+def drive_sharded_path(kernels):
+    """The sharded training step at world 1 over NCCL, in a subprocess
+    (sharded_child): its TRAIN_STEPS losses bit-equal to the plain step's
+    from the same seed; K1-K4 and K6 launched."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    with tempfile.TemporaryDirectory(prefix="smg_sharded_") as td:
+        out = Path(td) / "sharded.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", SHARDED_RUNNER, str(out)],
+                              capture_output=True, text=True, timeout=600, env=env,
+                              cwd=Path(__file__).resolve().parent)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:])
+        check(proc.returncode == 0, f"the sharded child exited {proc.returncode}")
+        res = json.loads(out.read_text())
+    sh, pl = res["sharded"], res["plain"]
+    print(f"sharded step (world {res['world']}, {res['backend']}, {seconds:.1f} s): losses "
+          f"{sh['losses']} [{', '.join(f'{x:.3f}' for x in sh['seconds'])} s] against the "
+          f"plain step's {pl['losses']} [{', '.join(f'{x:.3f}' for x in pl['seconds'])} s]")
+    check(res["backend"] == "nccl" and res["world"] == 1, f"process group {res}")
+    check(sh["loss_bits"] == pl["loss_bits"],
+          f"sharded losses {sh['loss_bits']} differ from the plain step's {pl['loss_bits']}")
+    check(sh["losses"][0] == 0.0 and all(x > 0 for x in sh["losses"][1:]), "sharded losses")
+    counts = sh["launches"]
+    print("launches in the sharded step: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in counts.items()))
+    for k in kernels:
+        k["launches_sharded"] = counts[k["name"]]
+        if k["name"].split()[0] in SHARDED_KERNELS:
+            check(counts[k["name"]] > 0, f"{k['name']} was not launched by the sharded step")
+    DETAIL["sharded_path"] = {**res, "seconds": seconds}
+
+
 def update_modes_on_snapshot(dev, path: str) -> dict:
     """compare_update_modes at a trained run's weights: the CLI's held
     training config (python -m smg_tpu_torch.cli.main --is_ets --is_pe
@@ -2008,6 +2330,11 @@ def main(argv):
     torch.cuda.empty_cache()
     drive_cli_path(kernels)
     drive_perception_path(dev, kernels)
+    drive_pretrain_path(dev, kernels)
+    torch.cuda.empty_cache()
+    drive_vmap_path(dev, kernels)
+    torch.cuda.empty_cache()
+    drive_sharded_path(kernels)
 
     DETAIL["card"] = card
     DETAIL["kernels"] = kernels
@@ -2016,7 +2343,7 @@ def main(argv):
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_b1024",
             "bound_ms_b1024")
-    paths = ("act", "train", "parity", "cli", "perception")
+    paths = ("act", "train", "parity", "cli", "perception", "pretrain", "vmap", "sharded")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in keys if k in kern},
          "launches_by_path": {p: kern[f"launches_{p}"] for p in paths}}

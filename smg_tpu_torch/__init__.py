@@ -9,27 +9,33 @@ sm_90a (csrc/), built at first use and bound through ctypes (ops/).
 Port state: the act step and the training step (train/loop.py), the eval
 trunk's three kernel backends, the experiment runner
 (`python -m smg_tpu_torch.cli.main`, the reference's flags): the run tree,
-checkpoints, resume and the snapshot for testing; and the perception
-slice: mesh ingest, the learned segmenter, the perspective heightmap path
-and the tiny trunk.
+checkpoints, resume and the snapshot for testing; the perception slice:
+mesh ingest, the learned segmenter, the perspective heightmap path and the
+tiny trunk; trunk pretraining (`python -m smg_tpu_torch.cli.pretrain_trunks`,
+`--pretrained_trunks`), the per-scene physics executor
+(LoopConfig.executor="vmap") and data parallelism over torch.distributed
+(`--data_parallel N` under torchrun).
 
 Subpackages
 -----------
 core        rotations/quaternions, tendon model, camera and the perspective
             heightmap path, homographies
-physics     batched rigid-body stepper (contact sweep: CUDA kernel K1)
+physics     rigid-body stepper: the batched path (contact sweep: CUDA
+            kernel K1) and the per-scene path (dense contacts)
 render      orthographic heightmap/instance rasterizer, perspective RGB-D
 perception  exact instance segmentation, min-area rects, NMS, the learned
             slot segmenter
 models      two-stream affordance nets on DenseNet-121 (eval trunk: K2-K5,
             K7; train trunk: K6) or the tiny trunk
 policy      action arbitration, PE / OO action geometry
-envs        scripted primitives + the batched executor
-train       trainer, the loop, checkpoints
+envs        scripted primitives, the per-scene and the batched executor
+train       trainer, the loop, checkpoints, trunk pretraining
+parallel    data parallelism: process groups, the sharded step, the
+            multi-process CPU dryrun
 utils       CLI config, run logger, native host library (mesh fitter,
             binary log), mesh ingest, phase timer
 cli         main (the experiment runner), smoke, decision_parity,
-            train_segmenter, eval_segmenter
+            train_segmenter, eval_segmenter, pretrain_trunks
 ops         kernel wrappers: plain PyTorch versions, launch counters
 """
 

@@ -18,6 +18,10 @@ neither jax nor flax.
 - `load_segmenter_params` / `dump_segmenter_params`: Flax SlotSegmenter
   `params` (Conv_k kernel + bias, GroupNorm_k scale + bias) to the port's
   SlotSegmenter, whose children carry the same auto names, and back.
+- `load_reconstruction_params` / `dump_reconstruction_params`: a Flax
+  ReconstructionModel's `params` + `batch_stats` (trunk, dec0-dec4 and
+  out, whose convs carry biases) into the port's module, by name, and
+  back.
 - `load_trainer_state` / `trainer_state_to_numpy`: a JAX TrainerState
   (online and target params + batch_stats, optax's ScaleByAdamState
   count/mu/nu, the iteration) into a port Trainer's two nets and
@@ -186,6 +190,32 @@ def dump_segmenter_params(model) -> dict:
         else:
             out[name] = {"scale": _np(child.weight), "bias": _np(child.bias)}
     return out
+
+
+def load_reconstruction_params(model, params: dict, batch_stats: dict) -> None:
+    """Flax ReconstructionModel params + batch_stats -> the port's
+    ReconstructionModel (train/pretrain.py)."""
+    load_module(model.trunk, params["trunk"], batch_stats.get("trunk", {}))
+    for name, child in model.named_children():
+        if isinstance(child, torch.nn.Conv2d):
+            _load_conv(child, params[name])
+            _copy(child.bias, params[name]["bias"])
+
+
+def dump_reconstruction_params(model) -> tuple[dict, dict]:
+    """The port's ReconstructionModel -> Flax-layout (params, batch_stats)."""
+    params, stats = {}, {}
+    for path, p, conv in param_slots(model.trunk, ("trunk",)):
+        _set(params, path, to_flax(p, conv))
+    for mod_name, m in model.trunk.named_modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            path = ("trunk", *mod_name.split("."))
+            _set(stats, path + ("mean",), _np(m.running_mean))
+            _set(stats, path + ("var",), _np(m.running_var))
+    for name, child in model.named_children():
+        if isinstance(child, torch.nn.Conv2d):
+            params[name] = {"kernel": to_flax(child.weight, True), "bias": _np(child.bias)}
+    return params, stats
 
 
 def load_trainer_state(trainer, tree: dict):

@@ -15,7 +15,16 @@ Usage follows the reference (reference README.md:40-113), e.g.:
 plus the batched-run knobs --batch_size N, --input_size 224|640 and
 --trunk densenet121|tiny, --obj_mesh_dir <dir of enveloping/ + sucking/
 .obj meshes>, --segmentation learned --segmenter_checkpoint P (a
-cli.train_segmenter checkpoint), and --cpu to run on the CPU. A run
+cli.train_segmenter checkpoint), --pretrained_trunks P (a
+cli.pretrain_trunks checkpoint: the trunks of both nets start from it),
+and --cpu to run on the CPU. Data parallelism over N cards:
+
+    torchrun --nproc_per_node N -m smg_tpu_torch.cli.main ... \
+        --batch_size B --data_parallel N
+
+each rank on cuda:LOCAL_RANK with B / N of the scenes
+(parallel/sharded.py); rank 0 alone writes the run tree, so it is the
+tree of a one-process run. A run
 writes the reference's run tree (utils/logger.py): info/config.json, the
 ten transitions logs, scene-0 imagery every --imagery_every iterations,
 checkpoints under models/ckpt every 50 training iterations and at the
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 from smg_tpu_torch.core import camera as cam
+from smg_tpu_torch.parallel import mesh, sharded
 from smg_tpu_torch.perception import learned
 from smg_tpu_torch.render import persp
 from smg_tpu_torch.train import checkpoints
@@ -175,11 +185,21 @@ def _completed_episodes(logger: Logger) -> int:
 
 def run(cfg: cfg_mod.ExperimentConfig) -> dict:
     """Train or test until the episode target (or max_iterations); returns
-    the run directory, the iterations and episodes done and the phase
-    times."""
-    dev = resolve_device(cfg.device)
-    print(f"device: {dev}"
-          + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
+    the run directory (None on ranks other than 0), the iterations and
+    episodes done and the phase times."""
+    parallel = cfg.data_parallel > 1 or "WORLD_SIZE" in os.environ
+    if parallel:
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(f"--data_parallel {cfg.data_parallel}: launch with torchrun "
+                             f"--nproc_per_node {cfg.data_parallel} -m smg_tpu_torch.cli.main")
+        dev = mesh.init_data_parallel(cfg.data_parallel, torch.device(cfg.device).type)
+    else:
+        dev = resolve_device(cfg.device)
+    lead = mesh.rank() == 0
+    if lead:
+        print(f"device: {dev}"
+              + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else "")
+              + (f", data-parallel world {mesh.world()}" if parallel else ""))
     if cfg.env.segmentation == "learned" and cfg.loop.segmenter is None:
         # The trained SlotSegmenter becomes the observation front end (the
         # Mask-R-CNN-parity path, reference main.py:139).
@@ -187,28 +207,46 @@ def run(cfg: cfg_mod.ExperimentConfig) -> dict:
             raise SystemExit("--segmentation learned requires --segmenter_checkpoint")
         seg = learned.load_segmenter(cfg.segmenter_checkpoint, dev)
         cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, segmenter=seg))
-        print(f"segmenter loaded from: {cfg.segmenter_checkpoint}")
+        if lead:
+            print(f"segmenter loaded from: {cfg.segmenter_checkpoint}")
     trainer = Trainer(cfg.train, device=dev)
-    logger = Logger(cfg.continue_logging, cfg.logging_directory)
+    logger = Logger(cfg.continue_logging, cfg.logging_directory) if lead else None
     try:
-        return _run(cfg, trainer, logger)
+        return _run(cfg, trainer, logger, parallel)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+        mesh.shutdown()
 
 
-def _run(cfg, trainer: Trainer, logger: Logger) -> dict:
-    logger.save_camera_info(cam.DEFAULT_INTRINSICS, np.eye(4), 1.0)
-    logger.save_heightmap_info(cam.WORKSPACE_LIMITS, cam.HEIGHTMAP_RESOLUTION)
-    logger.save_config(cfg.to_dict())
-    ckpt = checkpoints.CheckpointManager(
-        os.path.join(logger.models_directory, "ckpt"))
+def _run(cfg, trainer: Trainer, logger: Logger | None, parallel: bool) -> dict:
+    """The run; `logger` is None on the ranks other than 0, which write
+    nothing (their print is silenced too) and read the checkpoints of the
+    reused run directory on resume."""
+    lead = logger is not None
+    say = print if lead else (lambda *a, **k: None)
+    if lead:
+        logger.save_camera_info(cam.DEFAULT_INTRINSICS, np.eye(4), 1.0)
+        logger.save_heightmap_info(cam.WORKSPACE_LIMITS, cam.HEIGHTMAP_RESOLUTION)
+        logger.save_config(cfg.to_dict())
+        ckpt = checkpoints.CheckpointManager(os.path.join(logger.models_directory, "ckpt"))
+    elif cfg.continue_logging:
+        ckpt = checkpoints.CheckpointManager(os.path.join(
+            os.path.abspath(cfg.logging_directory), "models", "ckpt"))
 
-    print("initializing scenes + model...")
-    state = init_loop(cfg.seed, trainer, cfg.loop)
+    say("initializing scenes + model...")
+    scene_slice = mesh.scene_slice(cfg.loop.batch_size) if parallel else None
+    state = init_loop(cfg.seed, trainer, cfg.loop, scene_slice)
+    if cfg.pretrained_trunks:
+        # The self-supervised warm start where the reference loaded
+        # ImageNet weights (models.py:22-24,308-310); before any resume or
+        # snapshot, which then take precedence.
+        checkpoints.load_pretrained(trainer, cfg.pretrained_trunks)
+        say(f"pretrained trunks loaded from: {cfg.pretrained_trunks}")
     iteration = 0
     episode_base = 0
     if cfg.continue_logging:
-        episode_base = _completed_episodes(logger)
+        episode_base = _completed_episodes(logger) if lead else 0
         # Restore the latest checkpoint of the reused run, optimizer
         # included, and number on from its iteration, so later saves stay
         # monotone (the reference re-parsed its logs, trainer.py:118-158).
@@ -216,14 +254,16 @@ def _run(cfg, trainer: Trainer, logger: Logger) -> dict:
         if latest is not None:
             state.trainer = ckpt.restore(trainer)
             iteration = state.trainer.iteration
-            print(f"Resumed trainer state from checkpoint step {latest}"
-                  f" (iteration {iteration})")
+            say(f"Resumed trainer state from checkpoint step {latest}"
+                f" (iteration {iteration})")
 
     if cfg.load_snapshot and cfg.snapshot_file:
         # Params + BatchNorm running statistics into both nets (the
         # reference's state_dict includes BN buffers, logger.py:121-123).
         checkpoints.load_snapshot(trainer, cfg.snapshot_file)
-        print(f"Pre-trained model snapshot loaded from: {cfg.snapshot_file}")
+        say(f"Pre-trained model snapshot loaded from: {cfg.snapshot_file}")
+    step_fn = (sharded.make_sharded_step(trainer, cfg.loop) if parallel else
+               (lambda s: train_step(trainer, cfg.loop, s)))
 
     testing = cfg.env.is_testing
     episode_target = cfg.testing_episode if testing else cfg.training_episode
@@ -233,29 +273,35 @@ def _run(cfg, trainer: Trainer, logger: Logger) -> dict:
     timer = PhaseTimer()
     while True:
         with timer.phase("step", block_on=dev):
-            state, metrics = train_step(trainer, cfg.loop, state)
+            state, metrics = step_fn(state)
         with timer.phase("device_get"):
-            host = fetch_metrics(metrics, state.counters.episode_idx)
+            episode_idx = state.counters.episode_idx
+            if parallel:
+                episode_idx = sharded.gather_scenes(episode_idx)
+            host = fetch_metrics(metrics, episode_idx)
         iteration += 1
         episodes = host.episodes
-        with timer.phase("log"):
-            episode_base += log_step_metrics(logger, host, iteration, episode_base)
-            if cfg.imagery_every and iteration % cfg.imagery_every == 0:
-                save_step_imagery(logger, metrics, iteration)
-                save_step_rgbd(logger, state, iteration)
+        if lead:
+            with timer.phase("log"):
+                episode_base += log_step_metrics(logger, host, iteration, episode_base)
+                if cfg.imagery_every and iteration % cfg.imagery_every == 0:
+                    save_step_imagery(logger, metrics, iteration)
+                    save_step_rgbd(logger, state, iteration)
         succ_rate = float(((host.grasp_success > 0) | (host.suction_success > 0)
                            | (host.gs_success > 0)).mean())
-        print(
-            f"{'Testing' if testing else 'Training'} iteration: {iteration}"
+        say(f"{'Testing' if testing else 'Training'} iteration: {iteration}"
             f" | episodes: {episodes} | loss: {host.loss:.4f} | success-rate:"
             f" {succ_rate:.3f} | {time.time() - t_start:.1f}s", flush=True)
-        if not testing:
+        if lead and not testing:
             ckpt.maybe_save(iteration, trainer, state.trainer)
         if episodes >= episode_target:
             break
         if 0 < cfg.max_iterations <= iteration:
             break
 
+    if not lead:
+        return {"run_dir": None, "iterations": iteration, "episodes": episodes,
+                "phases": timer.summary()}
     if not testing:
         ckpt.save(iteration, trainer, state.trainer)
         # The snapshot for --is_testing --load_snapshot: params + BN

@@ -1,10 +1,18 @@
-"""Scripted grasp / suction primitive pieces, batched over scenes.
+"""Scripted grasp / suction / envelop-then-suck primitives, batched over
+scenes (port of smg_tpu/envs/primitives.py).
 
-Port of the parts of smg_tpu/envs/primitives.py that the batched executor
-(envs/batched.py) uses: phase lengths, per-scene stage targets, stage
-gating, the envelop and suction capture tests, and the teleport-out of
-lifted objects. The per-scene `grasp` / `suction` / `*_first` wrappers run
-on the per-scene stepper, which is not ported yet.
+Each primitive is a fixed sequence of phases; each phase servos the
+gripper toward a target pose while the physics steps. Captures are
+constraint switches gated by geometry (the envelop and suction capture
+tests); success bookkeeping is the reference's (robot.py:378-392,420-553).
+
+The pieces (phase lengths, per-scene stage targets, stage gating, the
+capture tests, the teleport-out of lifted objects) serve both executors.
+`grasp`, `suction`, `grasp_first`, `suction_first` and
+`grasp_then_suction` run their phases on the per-scene stepper
+(stepper.run_steps), as smg_env.execute does; envs/batched.py runs the
+same program on the K1 stepper. `enabled` (B,) gates a whole stage per
+scene: a disabled scene holds its entry pose and captures nothing.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ from smg_tpu_torch.core import tendon
 from smg_tpu_torch.physics import gripper as gr
 from smg_tpu_torch.physics import stepper
 from smg_tpu_torch.physics.state import (
+    ATTACHED_GRASP,
+    ATTACHED_SUCTION,
     FREE,
     LIFT_SUCCESS_Z,
     PARK_POS,
@@ -59,6 +69,21 @@ class PrimitiveParams:
 
 
 DEFAULT = PrimitiveParams()
+
+
+def _phase(scene: Scene, target: Gripper, n: int, p: PrimitiveParams) -> Scene:
+    return stepper.run_steps(scene, target, n, p.stepper)
+
+
+def _grip(pos, yaw, tilt, curl) -> Gripper:
+    """A target pose; a float curl applies to every scene."""
+    if not isinstance(curl, torch.Tensor):
+        curl = torch.full_like(yaw, curl)
+    return Gripper(pos=pos, yaw=yaw, tilt=tilt, curl=curl)
+
+
+def _all(scene: Scene) -> torch.Tensor:
+    return torch.ones(scene.batch_size, dtype=torch.bool, device=scene.device)
 
 
 def _object_min_width(obj) -> torch.Tensor:
@@ -178,3 +203,103 @@ def suction_stage_params(cur_curl, position, rotation_angle, finger_angle):
 def gate_target(target: Gripper, hold: Gripper, enabled: torch.Tensor) -> Gripper:
     """Disabled scenes hold the entry pose (primitives.py:242-249)."""
     return hold.where(enabled, target)
+
+
+def _finish(scene: Scene, p: PrimitiveParams = DEFAULT) -> Scene:
+    """Detach everything, resurrect fallen objects, open the gripper and
+    let the table settle (primitives.py:184-197, robot.py:489-508)."""
+    obj = stepper.resurrect_fallen(stepper.detach_all(scene.objects))
+    scene = scene.replace(objects=obj)
+    open_target = scene.gripper.replace(curl=torch.zeros_like(scene.gripper.curl))
+    return _phase(scene, open_target, p.steps_finish, p)
+
+
+def grasp(scene: Scene, open_distance, position, rotation_angle,
+          p: PrimitiveParams = DEFAULT, enabled=None):
+    """The enveloping sequence (primitives.py:257-321, robot.py:555-626):
+    open_distance (B,), position (B, 3) surface points, rotation_angle
+    (B,). Returns (scene, success (B,), reached curl (B,)); the scene still
+    holds what it captured. enabled (B,) bool, default all."""
+    enabled = _all(scene) if enabled is None else enabled
+    hold = scene.gripper
+    tool_yaw, pre_curl, final_curl, above, down = grasp_stage_params(
+        open_distance, position, rotation_angle)
+    zero_tilt = torch.zeros_like(hold.tilt)
+
+    def go(sc, pos, curl, n):
+        return _phase(sc, gate_target(_grip(pos, tool_yaw, zero_tilt, curl), hold,
+                                      enabled), n, p)
+
+    scene = go(scene, above, 0.0, p.steps_move_above)        # travel, open
+    scene = go(scene, above, pre_curl, p.steps_preclose)     # pre-close
+    scene = go(scene, down, pre_curl, p.steps_descend)       # descend
+    scene = go(scene, down, final_curl, p.steps_squeeze)     # squeeze
+    cap = _envelop_capture_mask(scene, pre_curl, final_curl) & enabled[:, None]
+    scene = scene.replace(objects=stepper.attach(scene.objects, scene.gripper, cap,
+                                                 ATTACHED_GRASP))
+    scene = go(scene, above, final_curl, p.steps_lift)       # lift
+    obj = scene.objects
+    lifted = (obj.on_table & (obj.attached == ATTACHED_GRASP)
+              & (obj.pos[..., 2] > LIFT_SUCCESS_Z))
+    success = (lifted.any(dim=1) & enabled).to(torch.float32)
+    return _teleport_out_lifted(scene, enabled), success, final_curl
+
+
+def suction(scene: Scene, position, rotation_angle, finger_angle,
+            p: PrimitiveParams = DEFAULT, enabled=None):
+    """The sucking sequence (primitives.py:324-370, robot.py:629-713):
+    finger_angle (B,) 1 -> full close, 0 -> keep, else that curl. Returns
+    (scene, success (B,)) with the sucked object still attached."""
+    enabled = _all(scene) if enabled is None else enabled
+    hold = scene.gripper
+    pad_id, tool_yaw, tilt, curl, touch, above = suction_stage_params(
+        scene.gripper.curl, position, rotation_angle, finger_angle)
+    zero_tilt = torch.zeros_like(tilt)
+
+    def go(sc, pos, tl, n):
+        return _phase(sc, gate_target(_grip(pos, tool_yaw, tl, curl), hold, enabled),
+                      n, p)
+
+    scene = go(scene, above, zero_tilt, p.steps_move_above)  # travel + yaw
+    scene = go(scene, above, tilt, p.steps_pad_align)        # pad-align tilt
+    scene = go(scene, touch, tilt, p.steps_descend)          # descend to touch
+    cap = _suction_capture_mask(scene, pad_id) & enabled[:, None]
+    success = cap.any(dim=1).to(torch.float32)
+    scene = scene.replace(objects=stepper.attach(scene.objects, scene.gripper, cap,
+                                                 ATTACHED_SUCTION))
+    scene = go(scene, above, zero_tilt, p.steps_lift)        # lift + untilt
+    return scene, success
+
+
+def grasp_first(scene: Scene, open_distance, position, rotation_angle,
+                p: PrimitiveParams = DEFAULT):
+    """robot.grasp_first (robot.py:474-510): grasp, bookkeeping, 0 / 1."""
+    scene, success, _ = grasp(scene, open_distance, position, rotation_angle, p)
+    return _finish(scene, p), success
+
+
+def suction_first(scene: Scene, position, rotation_angle,
+                  p: PrimitiveParams = DEFAULT):
+    """robot.suction_first (robot.py:512-553): suck, lift, 0 / 1."""
+    scene, success = suction(scene, position, rotation_angle,
+                             torch.ones_like(rotation_angle), p)
+    scene = _teleport_out_lifted(scene, _all(scene))
+    return _finish(scene, p), success
+
+
+def grasp_then_suction(scene: Scene, open_distance, grasp_position,
+                       grasp_rotation_angle, suction_position,
+                       suction_rotation_angle, p: PrimitiveParams = DEFAULT):
+    """robot.grasp_then_suction (robot.py:420-471): envelop one object,
+    keep holding, suck a second; reward 2.5 both / 0.5 one / 0 none."""
+    scene, g_succ, reached_curl = grasp(scene, open_distance, grasp_position,
+                                        grasp_rotation_angle, p)
+    # On a failed grasp the fingers stay at the reached angle for the
+    # suction retry (robot.py:424-428).
+    finger_angle = torch.where(g_succ > 0, torch.zeros_like(reached_curl), reached_curl)
+    scene, s_succ = suction(scene, suction_position, suction_rotation_angle,
+                            finger_angle, p)
+    scene = _finish(_teleport_out_lifted(scene, _all(scene)), p)
+    reward = torch.where((g_succ > 0) & (s_succ > 0), 2.5,
+                         torch.where((g_succ > 0) | (s_succ > 0), 0.5, 0.0))
+    return scene, reward

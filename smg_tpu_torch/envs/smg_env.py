@@ -3,9 +3,10 @@
 Port of smg_tpu/envs/smg_env.py for B scenes at once: EnvConfig,
 resolve_catalogs (procedural catalogs or an --obj_mesh_dir of .obj
 meshes), reset, observe (exact segmentation, or a learned front-end
-through `seg_fn`), masked_scene_depth, compute_geometry, ik_ok and
-episode_done. Primitive execution is envs/batched.py::execute_batched;
-the per-scene `execute` waits for ROADMAP.md section 1, item 3.
+through `seg_fn`), masked_scene_depth, compute_geometry, execute, ik_ok and episode_done.
+Primitive execution has two executors of one program: `execute`, the
+per-scene path (primitives on stepper.run_steps, dense contacts), and
+envs/batched.py::execute_batched on the K1 stepper.
 """
 
 from __future__ import annotations
@@ -16,12 +17,18 @@ from dataclasses import dataclass
 
 import torch
 
+from smg_tpu_torch.envs import primitives as prim
 from smg_tpu_torch.perception import segment as seg_mod
 from smg_tpu_torch.physics import scene as scene_mod
 from smg_tpu_torch.physics import stepper
 from smg_tpu_torch.physics.state import Scene, _Batched
 from smg_tpu_torch.policy import action_geom as ag
-from smg_tpu_torch.policy.arbitrate import ACTION_ETS, ActionChoice
+from smg_tpu_torch.policy.arbitrate import (
+    ACTION_ETS,
+    ACTION_GRASP,
+    ACTION_SUCTION,
+    ActionChoice,
+)
 from smg_tpu_torch.render import ortho
 
 
@@ -95,11 +102,13 @@ class StepOutcome(_Batched):
                 | (self.gs_success > 0))
 
 
-def reset(gen: torch.Generator, B: int, cfg: EnvConfig, device) -> Scene:
-    """B fresh episode scenes (smg_env.py:130-135)."""
+def reset(gen: torch.Generator, B: int, cfg: EnvConfig, device, scene_slice=None,
+          run=stepper.run_steps_batched) -> Scene:
+    """B fresh episode scenes (smg_env.py:130-135), settled with `run`; a
+    scene_slice's of them when given (scene.reset_scene)."""
     return scene_mod.reset_scene(
         gen, B, device, cfg.is_cluttered, cfg.is_testing, cfg.settle_steps,
-        catalogs=resolve_catalogs(cfg),
+        catalogs=resolve_catalogs(cfg), scene_slice=scene_slice, run=run,
     )
 
 
@@ -146,6 +155,47 @@ def compute_geometry(choice: ActionChoice, obs: Observation,
     return Geometry(grasp_position=g_pos, grasp_angle=g_angle,
                     open_distance=open_d, suction_position=s_pos,
                     suction_angle=s_angle)
+
+
+def execute(scenes: Scene, choice: ActionChoice, geom: Geometry,
+            p: prim.PrimitiveParams = prim.DEFAULT):
+    """The unified primitive executor on the per-scene stepper
+    (smg_env.py:196-248, main.py:384-396): the envelop stage runs for grasp
+    and ETS scenes, the suction stage for suction and ETS scenes, each
+    gated per scene (a disabled stage holds the gripper where it is).
+    Returns (scenes, StepOutcome)."""
+    is_g = choice.action == ACTION_GRASP
+    is_s = choice.action == ACTION_SUCTION
+    is_e = choice.action == ACTION_ETS
+    scenes, g_succ, reached_curl = prim.grasp(
+        scenes, geom.open_distance, geom.grasp_position, geom.grasp_angle, p,
+        enabled=is_g | is_e)
+    # Suction posture: full close for plain suction; for ETS keep holding
+    # on success, else the reached angle (robot.py:424-428,517).
+    finger_angle = torch.where(is_s, torch.ones_like(reached_curl),
+                               torch.where(g_succ > 0, torch.zeros_like(reached_curl),
+                                           reached_curl))
+    scenes, s_succ = prim.suction(scenes, geom.suction_position, geom.suction_angle,
+                                  finger_angle, p, enabled=is_s | is_e)
+    scenes = prim._teleport_out_lifted(scenes, is_s | is_e)
+    scenes = prim._finish(scenes, p)
+    gs_reward = torch.where((g_succ > 0) & (s_succ > 0), 2.5,
+                            torch.where((g_succ > 0) | (s_succ > 0), 0.5, 0.0))
+    # The final phase's target: the grasp hover point for grasp-only
+    # scenes, else the suction hover point (the JAX executor computes it
+    # from the gripper's curl after the finish).
+    _, _, _, g_above, _ = prim.grasp_stage_params(
+        geom.open_distance, geom.grasp_position, geom.grasp_angle)
+    *_, s_above = prim.suction_stage_params(
+        scenes.gripper.curl, geom.suction_position, geom.suction_angle, finger_angle)
+    expect = torch.where(is_g[:, None], g_above, s_above)
+    zero = torch.zeros_like(g_succ)
+    return scenes, StepOutcome(
+        suction_success=torch.where(is_s, s_succ, zero),
+        grasp_success=torch.where(is_g, g_succ, zero),
+        gs_success=torch.where(is_e, gs_reward, zero),
+        tip_divergence=torch.linalg.norm(scenes.gripper.pos - expect, dim=-1),
+    )
 
 
 def ik_ok(scenes: Scene) -> torch.Tensor:

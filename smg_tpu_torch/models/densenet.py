@@ -14,6 +14,15 @@ unfused BatchNorm (f32 math, rounded to the dtype), convolutions and
 concatenations, on no kernel of the port. It is the oracle that the fast
 eval backends are held to, never on the main path.
 
+`forward(x, train=True)` (both trunks) is the counterpart of Flax's
+`apply(..., train=True, mutable=["batch_stats"])`: BatchNorm with the
+moments of the whole batch, in f32 with the fast variance
+E[x^2] - E[x]^2 clipped at 0, and each running statistic updated in place
+as 0.9 running + 0.1 batch with the *biased* variance (Flax's
+_compute_stats; nn.BatchNorm2d would update with the unbiased one). Trunk
+pretraining (train/pretrain.py) runs it; the affordance update does not
+(it has per-image statistics, models/fast_trunk.py).
+
 `block_config` is an argument, as in the Flax DenseNetTrunk
 (densenet.py:99), so that tests can build a shallow trunk.
 
@@ -47,14 +56,36 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
-def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d, dt: torch.dtype) -> torch.Tensor:
-    """Flax BatchNorm with running averages on NCHW x:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, rounded to dt
-    (flax.linen.normalization._normalize)."""
-    mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-    y = ((x.float() - bn.running_mean[:, None, None]) * mul[:, None, None]
-         + bn.bias[:, None, None])
+def _bn_apply(x: torch.Tensor, mean, var, bn: nn.BatchNorm2d,
+              dt: torch.dtype) -> torch.Tensor:
+    """(x - mean) * (rsqrt(var + eps) * scale) + bias in f32 on NCHW x,
+    rounded to dt (flax.linen.normalization._normalize)."""
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    y = (x.float() - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
     return y.to(dt)
+
+
+def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d, dt: torch.dtype) -> torch.Tensor:
+    """Flax BatchNorm with running averages on NCHW x."""
+    return _bn_apply(x, bn.running_mean, bn.running_var, bn, dt)
+
+
+def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d, dt: torch.dtype) -> torch.Tensor:
+    """Flax BatchNorm with the batch's moments on NCHW x (differentiable
+    through them); updates bn's running statistics in place with the
+    biased variance (see the module docstring)."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        keep = 1.0 - BN_MOMENTUM
+        bn.running_mean.copy_(keep * bn.running_mean + BN_MOMENTUM * mean)
+        bn.running_var.copy_(keep * bn.running_var + BN_MOMENTUM * var)
+    return _bn_apply(xf, mean, var, bn, dt)
+
+
+def _norm(train: bool):
+    return bn_train if train else bn_eval
 
 
 @contextlib.contextmanager
@@ -84,12 +115,12 @@ class DenseLayer(nn.Module):
         self.conv2 = nn.Conv2d(bn_size * growth_rate, growth_rate, 3,
                                padding=1, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval: NCHW x in the working dtype -> x with 32 channels appended."""
-        dt = x.dtype
-        h = torch.relu(bn_eval(x, self.norm1, dt))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """NCHW x in the working dtype -> x with 32 channels appended."""
+        dt, bn = x.dtype, _norm(train)
+        h = torch.relu(bn(x, self.norm1, dt))
         h = F.conv2d(h, self.conv1.weight.to(dt))
-        h = torch.relu(bn_eval(h, self.norm2, dt))
+        h = torch.relu(bn(h, self.norm2, dt))
         h = F.conv2d(h, self.conv2.weight.to(dt), padding=1)
         return torch.cat([x, h], dim=1)
 
@@ -101,9 +132,9 @@ class DenseBlock(nn.Module):
             self.add_module(f"denselayer{i + 1}",
                             DenseLayer(c_in + i * GROWTH_RATE))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for layer in self.children():
-            x = layer(x)
+            x = layer(x, train)
         return x
 
 
@@ -113,10 +144,10 @@ class Transition(nn.Module):
         self.norm = _bn(c_in)
         self.conv = nn.Conv2d(c_in, c_out, 1, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval: BN, ReLU, 1x1, then the 2x2 average pool (densenet.py:77-92)."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """BN, ReLU, 1x1, then the 2x2 average pool (densenet.py:77-92)."""
         dt = x.dtype
-        h = torch.relu(bn_eval(x, self.norm, dt))
+        h = torch.relu(_norm(train)(x, self.norm, dt))
         return F.avg_pool2d(F.conv2d(h, self.conv.weight.to(dt)), 2)
 
 
@@ -141,20 +172,20 @@ class DenseNetTrunk(nn.Module):
         self.norm5 = _bn(c)
         self.num_features = c
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The module eval forward: (N, S, S, 3) -> (N, S/32, S/32, C) NHWC
-        in self.dtype (the oracle; see the module docstring)."""
-        dt = self.dtype
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The module forward: (N, S, S, 3) -> (N, S/32, S/32, C) NHWC in
+        self.dtype; eval (the oracle) or train (see the module docstring)."""
+        dt, bn = self.dtype, _norm(train)
         with no_tf32():
             h = x.to(dt).permute(0, 3, 1, 2)
             h = F.conv2d(h, self.conv0.weight.to(dt), stride=2, padding=3)
-            h = F.max_pool2d(torch.relu(bn_eval(h, self.norm0, dt)), 3, 2, padding=1)
+            h = F.max_pool2d(torch.relu(bn(h, self.norm0, dt)), 3, 2, padding=1)
             n = len(self.block_config)
             for i in range(n):
-                h = getattr(self, f"denseblock{i + 1}")(h)
+                h = getattr(self, f"denseblock{i + 1}")(h, train)
                 if i < n - 1:
-                    h = getattr(self, f"transition{i + 1}")(h)
-            h = bn_eval(h, self.norm5, dt)
+                    h = getattr(self, f"transition{i + 1}")(h, train)
+            h = bn(h, self.norm5, dt)
         return h.permute(0, 2, 3, 1)
 
 
@@ -178,15 +209,15 @@ class TinyTrunk(nn.Module):
             c = w
         self.proj = nn.Conv2d(c, TINY_FEATURES, 1, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The module eval forward (running-average BatchNorm): NHWC in
-        self.dtype, as Flax's TinyTrunk.apply(..., train=False)."""
-        dt = self.dtype
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The module forward: NHWC in self.dtype, as Flax's
+        TinyTrunk.apply(..., train=train)."""
+        dt, bn = self.dtype, _norm(train)
         with no_tf32():
             h = x.to(dt).permute(0, 3, 1, 2)
             for i in range(len(TINY_WIDTHS)):
                 h = F.conv2d(h, getattr(self, f"conv{i}").weight.to(dt), stride=2, padding=1)
-                h = torch.relu(bn_eval(h, getattr(self, f"norm{i}"), dt))
+                h = torch.relu(bn(h, getattr(self, f"norm{i}"), dt))
             h = F.conv2d(h, self.proj.weight.to(dt))
         return h.permute(0, 2, 3, 1)
 

@@ -47,6 +47,24 @@ def _to_world(g: Gripper, local: torch.Tensor) -> torch.Tensor:
     return g.pos[:, None, :] + local @ R.transpose(1, 2)
 
 
+def collider_spheres(g: Gripper):
+    """World-frame collider spheres (gripper.py:51-84): centers (B, G, 3),
+    radii (G,), G = N_GRIPPER_SPHERES. The per-scene path's form (the
+    tool rotation as a matrix product); collider_spheres_soa is the
+    batched stepper's."""
+    r_j, z_j = tendon.finger_chain_points(g.curl)                  # (B, 5)
+    r_chain = torch.cat([r_j, 0.5 * (r_j[:, :-1] + r_j[:, 1:])], dim=1)
+    z_chain = torch.cat([z_j, 0.5 * (z_j[:, :-1] + z_j[:, 1:])], dim=1)
+    ca, sa = _azimuths(g.pos.device)
+    fx = ca[None, :, None] * r_chain[:, None, :]                   # (B, 4, 9)
+    fy = sa[None, :, None] * r_chain[:, None, :]
+    fz = (-PALM_DROP - z_chain[:, None, :]).expand_as(fx)
+    B = fx.shape[0]
+    fingers = torch.stack([fx, fy, fz], dim=-1).reshape(B, -1, 3)
+    local = torch.cat([torch.zeros_like(fingers[:, :1]), fingers], dim=1)
+    return _to_world(g, local), collider_radii(g.pos.device)
+
+
 def fingertip_positions(g: Gripper) -> torch.Tensor:
     """(B, 4, 3) world fingertip positions (gripper.py:87-98)."""
     r_chain, z_chain = tendon.finger_chain_points(g.curl)

@@ -4,8 +4,10 @@ Port of smg_tpu/physics/scene.py. The distributions are the JAX
 package's (0-5 enveloping + 1-5 sucking objects, drop cells from a
 permutation of the first 10 grid cells, random yaw and tip), but the draws
 come from torch's generator, so a seed gives other scenes than JAX's PRNG.
-The settle runs through the batched stepper, which the JAX package pins
-bit-equal to its per-scene settle (tests/test_physics.py:243-257).
+The settle runs through the batched stepper by default, or any stepper
+with run_steps' signature (the per-scene stepper.run_steps under the
+loop's "vmap" executor). Under a SceneSlice the whole batch is drawn and
+only the slice's scenes are kept and settled.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from smg_tpu_torch.physics.state import (
     Gripper,
     Objects,
     Scene,
+    SceneSlice,
 )
 
 _COLORS = np.array(
@@ -128,13 +131,15 @@ def reset_scene(gen: torch.Generator, B: int, device,
                 is_cluttered: bool = False, is_testing: bool = False,
                 settle_steps: int = 250,
                 params: stepper.StepperParams = stepper.DEFAULT,
-                catalogs=None) -> Scene:
-    """B fresh episode scenes: spawn, home the gripper, settle
-    (scene.py:150-167)."""
-    sc = Scene(
-        objects=spawn_objects(gen, B, device, is_cluttered, is_testing,
-                              catalogs),
-        gripper=Gripper.home(B, device),
-        t=torch.zeros(B, dtype=torch.int32, device=device),
-    )
-    return stepper.run_steps_batched(sc, sc.gripper, settle_steps, params)
+                catalogs=None, scene_slice: SceneSlice | None = None,
+                run=stepper.run_steps_batched) -> Scene:
+    """B fresh episode scenes: spawn, home the gripper, settle with `run`
+    (scene.py:150-167). With scene_slice, B is the whole batch and the
+    slice's scenes come back."""
+    objects = spawn_objects(gen, B, device, is_cluttered, is_testing, catalogs)
+    if scene_slice is not None:
+        objects = objects.map(scene_slice.cut)
+        B = scene_slice.hi - scene_slice.lo
+    sc = Scene(objects=objects, gripper=Gripper.home(B, device),
+               t=torch.zeros(B, dtype=torch.int32, device=device))
+    return run(sc, sc.gripper, settle_steps, params)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,6 +29,20 @@ WORKSPACE = np.array([[-0.724, -0.276], [-0.224, 0.224], [-0.0001, 0.4]])
 LIFT_SUCCESS_Z = 0.11
 DROP_Z = 0.08
 PARK_POS = np.array([-0.5, 0.5, 0.1])
+
+
+class SceneSlice(NamedTuple):
+    """The scenes [lo, hi) that one process holds of a batch of `total`
+    (parallel/mesh.py::scene_slice). Random draws shaped by the batch are
+    made for all `total` scenes and then cut, so each process holds the
+    draws of its scenes in the one-process run."""
+
+    lo: int
+    hi: int
+    total: int
+
+    def cut(self, x: torch.Tensor) -> torch.Tensor:
+        return x[self.lo:self.hi]
 
 
 class _Batched:

@@ -1,11 +1,20 @@
-"""The batched rigid-body stepper: step(scenes, gripper_target) -> scenes.
+"""The rigid-body stepper: step(scenes, gripper_target) -> scenes (port of
+smg_tpu/physics/stepper.py), on scenes with a leading B axis.
 
-Port of the batched path of smg_tpu/physics/stepper.py (:262-417): the
-per-step SoA state prep, the K1 contact sweep (ops/contact.py), the table
-contact, torques, and the semi-implicit integration with attachment
-kinematics. Any batch size works. The per-scene `physics_step` and
-physics/contact.py are not ported yet; the JAX package pins the two paths
-bit-equal (tests/test_physics.py:243-257).
+Two formulations of one physics step, which differ only in the contact
+sweep:
+- `physics_step` / `run_steps` / `settle` (stepper.py:83-176): the
+  per-scene reference path. The gripper's colliders come from
+  gripper.collider_spheres and the contacts from
+  contact.fused_contact_forces, dense pair terms per scene.
+- `physics_step_batched` / `run_steps_batched` (stepper.py:262-417): the
+  per-step SoA state prep (scenes minor), the K1 contact sweep
+  (ops/contact.py), the table contact and the torques. The executor of the
+  act and training steps.
+Both share the servo, the semi-implicit integration and the attachment
+kinematics. Any batch size works. The JAX package pins the two bit-equal
+on its CPU (tests/test_physics.py:243-257); the port's are held to each
+other in tests/test_torch_contact_vmap.py.
 """
 
 from __future__ import annotations
@@ -16,23 +25,17 @@ import torch
 
 from smg_tpu_torch.core import rotation as rot
 from smg_tpu_torch.ops import contact as contact_op
+from smg_tpu_torch.physics import contact as ct
 from smg_tpu_torch.physics import gripper as gr
-from smg_tpu_torch.physics.state import FREE, WORKSPACE, Gripper, Objects, Scene
-
-
-@dataclass(frozen=True)
-class ContactParams:
-    """Soft-contact gains (physics/contact.py:29-52)."""
-
-    kn: float = 800.0
-    zeta: float = 0.6
-    mu: float = 0.8
-    v_eps: float = 0.01
-    mu_gripper: float = 0.6
-    table_z: float = 0.0
-    contact_share: float = 4.0
-    max_pen: float = 0.006
-    max_vn: float = 0.5
+from smg_tpu_torch.physics.contact import ContactParams  # also stepper.ContactParams
+from smg_tpu_torch.physics.state import (
+    FREE,
+    LIFT_SUCCESS_Z,
+    WORKSPACE,
+    Gripper,
+    Objects,
+    Scene,
+)
 
 
 @dataclass(frozen=True)
@@ -118,6 +121,40 @@ def _integrate_objects(obj: Objects, force: torch.Tensor, torque: torch.Tensor,
     return obj.replace(pos=pos, quat=quat, vel=vel, omega=omega)
 
 
+def contact_forces(obj: Objects, g_old: Gripper, g_new: Gripper,
+                   p: StepperParams = DEFAULT):
+    """The per-scene path's contact force and torque on each object, (B,
+    N, 3) each: the gripper's colliders at g_new, their velocities by
+    finite difference from g_old, the dense sweep (stepper.py:90-101)."""
+    c_new, radii = gr.collider_spheres(g_new)
+    c_old, _ = gr.collider_spheres(g_old)
+    return ct.fused_contact_forces(obj, c_new, radii, (c_new - c_old) / p.dt, p.contact)
+
+
+def physics_step(scene: Scene, gripper_target: Gripper,
+                 p: StepperParams = DEFAULT) -> Scene:
+    """One physics step of the per-scene path (stepper.py:83-104): the
+    gripper servoed toward its target, the dense contact sweep, the
+    integration."""
+    g_new = _servo_gripper(scene.gripper, gripper_target, p)
+    force, torque = contact_forces(scene.objects, scene.gripper, g_new, p)
+    new_obj = _integrate_objects(scene.objects, force, torque, g_new, p)
+    return scene.replace(objects=new_obj, gripper=g_new, t=scene.t + 1)
+
+
+def run_steps(scene: Scene, gripper_target: Gripper, n_steps: int,
+              p: StepperParams = DEFAULT) -> Scene:
+    """n_steps of physics_step (a Python loop where JAX scanned)."""
+    for _ in range(n_steps):
+        scene = physics_step(scene, gripper_target, p)
+    return scene
+
+
+def settle(scene: Scene, n_steps: int = 300, p: StepperParams = DEFAULT) -> Scene:
+    """Let free objects come to rest, the gripper held where it is."""
+    return run_steps(scene, scene.gripper, n_steps, p)
+
+
 def _world_spheres_soa(obj: Objects):
     """Batched world spheres, scenes minor (stepper.py:262-310).
 
@@ -160,17 +197,17 @@ def _world_spheres_soa(obj: Objects):
     return (cx, cy, cz, vx, vy, vz, rad, mass, live), arm
 
 
-def physics_step_batched(scenes: Scene, gripper_target: Gripper,
-                         p: StepperParams = DEFAULT) -> Scene:
-    """One physics step for a batch of scenes (stepper.py:313-401)."""
-    obj = scenes.objects
+def contact_forces_batched(obj: Objects, g_old: Gripper, g_new: Gripper,
+                           p: StepperParams = DEFAULT):
+    """The batched stepper's contact force and torque on each object, (B,
+    N, 3) each (stepper.py:324-396): the SoA state prep, K1 over every
+    object and gripper sphere, the table contact, the per-object reduce.
+    The counterpart of contact.fused_contact_forces on gripper.collider_spheres."""
     B, N, K = obj.sph_radii.shape
-    S = N * K
-    g0 = scenes.gripper
-    g_new = _servo_gripper(g0, gripper_target, p)
     gx1, gy1, gz1, grad = gr.collider_spheres_soa(
         g_new.pos, g_new.yaw, g_new.tilt, g_new.curl)
-    gx0, gy0, gz0, _ = gr.collider_spheres_soa(g0.pos, g0.yaw, g0.tilt, g0.curl)
+    gx0, gy0, gz0, _ = gr.collider_spheres_soa(g_old.pos, g_old.yaw, g_old.tilt,
+                                               g_old.curl)
     gvx = (gx1 - gx0) / p.dt
     gvy = (gy1 - gy0) / p.dt
     gvz = (gz1 - gz0) / p.dt
@@ -219,8 +256,15 @@ def physics_step_batched(scenes: Scene, gripper_target: Gripper,
     foz = fz.reshape(N, K, B).sum(1)
     force = torch.stack([fox, foy, foz], dim=-1).transpose(0, 1)   # (B, N, 3)
     torque = torch.stack([tqx, tqy, tqz], dim=-1).transpose(0, 1)
+    return force, torque
 
-    new_obj = _integrate_objects(obj, force, torque, g_new, p)
+
+def physics_step_batched(scenes: Scene, gripper_target: Gripper,
+                         p: StepperParams = DEFAULT) -> Scene:
+    """One physics step for a batch of scenes (stepper.py:313-401)."""
+    g_new = _servo_gripper(scenes.gripper, gripper_target, p)
+    force, torque = contact_forces_batched(scenes.objects, scenes.gripper, g_new, p)
+    new_obj = _integrate_objects(scenes.objects, force, torque, g_new, p)
     return scenes.replace(objects=new_obj, gripper=g_new, t=scenes.t + 1)
 
 
@@ -257,6 +301,11 @@ def attach(obj: Objects, g: Gripper, slot_mask: torch.Tensor, mode: int) -> Obje
 
 def detach_all(obj: Objects) -> Objects:
     return obj.replace(attached=torch.zeros_like(obj.attached))
+
+
+def lift_success_mask(obj: Objects, thresh: float = LIFT_SUCCESS_Z) -> torch.Tensor:
+    """Objects lifted above the success threshold, (B, N) (stepper.py:208-212)."""
+    return obj.on_table & (obj.pos[..., 2] > thresh)
 
 
 def fallen_mask(obj: Objects, thresh: float = 0.001) -> torch.Tensor:

@@ -96,12 +96,14 @@ def select_action(
     is_testing: bool = True,
     explore_prob: float = 0.0,
     generator: torch.Generator | None = None,
+    scene_slice=None,
 ) -> ActionChoice:
     """Pick the primitive + targets for B scenes (arbitrate.py:73-206).
 
     Out of testing, each scene explores with probability explore_prob: a
     uniform action over 2 primitives, or 3 with ETS (rand % 2 where only
-    one object is valid), drawn from `generator`."""
+    one object is valid), drawn from `generator`; under a SceneSlice
+    (physics/state.py) for the whole batch, then cut to the slice."""
     B, n, _ = gra_conf.shape
     dev = gra_conf.device
     num = valid.sum(dim=1)
@@ -148,9 +150,12 @@ def select_action(
         explored = torch.zeros(B, dtype=torch.bool, device=dev)
         action = exploit
     else:
-        explored = torch.rand(B, generator=generator, device=dev) < explore_prob
-        rand_raw = torch.randint(0, 3 if is_ets else 2, (B,), generator=generator,
+        n = B if scene_slice is None else scene_slice.total
+        explored = torch.rand(n, generator=generator, device=dev) < explore_prob
+        rand_raw = torch.randint(0, 3 if is_ets else 2, (n,), generator=generator,
                                  device=dev)
+        if scene_slice is not None:
+            explored, rand_raw = scene_slice.cut(explored), scene_slice.cut(rand_raw)
         if is_ets:
             rand_raw = torch.where(multi, rand_raw, rand_raw % 2)
         action = torch.where(explored, _i32(rand_raw), exploit)

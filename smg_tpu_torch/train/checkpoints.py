@@ -22,7 +22,11 @@ the CPU, where torch.optim.Adam keeps them).
   a training run (the online net's params and BatchNorm running
   statistics, smg_tpu/cli/main.py:329-340); `load_snapshot` puts one into
   a trainer's online and target nets, as `--load_snapshot --snapshot_file`
-  does (main.py:222-246).
+  does (main.py:222-246);
+- `load_pretrained`: a cli.pretrain_trunks checkpoint (a
+  ReconstructionModel's save_params file) into the three trunks of the
+  online net and then the whole online net into the target, as
+  `--pretrained_trunks` does (main.py:204-228); Adam's state stays fresh.
 """
 
 from __future__ import annotations
@@ -110,3 +114,11 @@ def load_snapshot(trainer: Trainer, path: str) -> None:
     state = load_params(path)
     trainer.model.load_state_dict(state)
     trainer.target.load_state_dict(state)
+
+
+def load_pretrained(trainer: Trainer, path: str) -> None:
+    """A pretrained trunk into all three trunks of both nets."""
+    from smg_tpu_torch.train.pretrain import load_pretrained_trunks
+
+    load_pretrained_trunks(trainer.model, load_params(path))
+    trainer.target.load_state_dict(trainer.model.state_dict())

@@ -10,11 +10,21 @@ makes no label and no update.
 
 Segmentation is the renderer's exact id buffers, or with
 env.segmentation="learned" the SlotSegmenter of LoopConfig.segmenter,
-one batched forward per step (loop.py:193-209). The port has only the
-batched executor (no LoopConfig.executor: the per-scene path waits for
-ROADMAP.md section 1, item 3); its initial reset settles through the
-batched stepper too (the JAX package's per-scene settle,
-loop.py:172-174, is pinned equal to it).
+one batched forward per step (loop.py:193-209).
+
+LoopConfig.executor picks the physics of execution and of the settles
+(loop.py:47-50,263-275,305-318): "batched" runs envs/batched.py on the K1
+stepper; "vmap" runs the per-scene path, smg_env.execute with the dense
+contacts of physics/contact.py, and settles the initial and the
+auto-reset scenes through stepper.run_steps. "auto" is "batched" on every
+device: the JAX package picks "vmap" off the TPU only because its batched
+path needs a Pallas kernel there, while the port's batched path runs K1 on
+the card and K1's plain version on the CPU.
+
+Under data parallelism (parallel/sharded.py) LoopState.scene_slice says
+which scenes of cfg.batch_size this process holds: the state carries
+only those, and every random draw shaped by the batch (the spawn, the
+epsilon-greedy draws) is made for the whole batch and cut to them.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ from smg_tpu_torch.envs import smg_env as env
 from smg_tpu_torch.perception import learned
 from smg_tpu_torch.physics import scene as scene_mod
 from smg_tpu_torch.physics import stepper
-from smg_tpu_torch.physics.state import Scene, _Batched
+from smg_tpu_torch.physics.state import Scene, SceneSlice, _Batched
 from smg_tpu_torch.policy import arbitrate as arb
 from smg_tpu_torch.policy.arbitrate import (
     ACTION_GRASP,
@@ -47,6 +57,8 @@ class LoopConfig:
     explore_rate_decay: bool = False  # main.py:443
     reset_settle_steps: int = 100
     primitive: prim.PrimitiveParams = field(default_factory=prim.PrimitiveParams)
+    # "auto" | "batched" | "vmap" (see the module docstring).
+    executor: str = "auto"
     # The learned front end (a SlotSegmenter) read when env.segmentation
     # == "learned"; frozen during grasp training (it trains separately,
     # cli/train_segmenter.py). Left out of eq and hash.
@@ -83,6 +95,24 @@ class LoopState:
     counters: EpisodeCounters
     prev: PrevStep
     generator: torch.Generator
+    scene_slice: SceneSlice | None = None   # None: all cfg.batch_size scenes
+
+
+EXECUTORS = ("auto", "batched", "vmap")
+
+
+def resolve_executor(cfg: LoopConfig) -> str:
+    """"batched" or "vmap" ("auto" is "batched", see the module docstring)."""
+    if cfg.executor not in EXECUTORS:
+        raise ValueError(f"LoopConfig.executor {cfg.executor!r}: one of {EXECUTORS}")
+    return "vmap" if cfg.executor == "vmap" else "batched"
+
+
+def _run_steps(cfg: LoopConfig):
+    """The stepper of the settles: per scene under "vmap", else K1's."""
+    if resolve_executor(cfg) == "vmap":
+        return stepper.run_steps
+    return stepper.run_steps_batched
 
 
 @dataclass
@@ -132,17 +162,21 @@ def blank_prev(B: int, device) -> PrevStep:
                     objects_number=zi)
 
 
-def init_loop(seed: int, trainer: Trainer, cfg: LoopConfig) -> LoopState:
+def init_loop(seed: int, trainer: Trainer, cfg: LoopConfig,
+              scene_slice: SceneSlice | None = None) -> LoopState:
     """Fresh scenes, a seeded He-initialized online net, its target copy
-    and a fresh optimizer (loop.py:166-181)."""
+    and a fresh optimizer (loop.py:166-181); with scene_slice, that slice
+    of the batch's scenes."""
     device = trainer.device
     gen = torch.Generator(device=device).manual_seed(seed)
-    scenes = env.reset(gen, cfg.batch_size, cfg.env, device)
+    scenes = env.reset(gen, cfg.batch_size, cfg.env, device, scene_slice,
+                       run=_run_steps(cfg))
     model_gen = torch.Generator(device=device).manual_seed(seed + 1)
+    B = scenes.batch_size
     return LoopState(
         scenes=scenes, trainer=trainer.init_state(model_gen),
-        counters=EpisodeCounters.zeros(cfg.batch_size, device),
-        prev=blank_prev(cfg.batch_size, device), generator=gen,
+        counters=EpisodeCounters.zeros(B, device),
+        prev=blank_prev(B, device), generator=gen, scene_slice=scene_slice,
     )
 
 
@@ -157,8 +191,9 @@ def train_step(trainer: Trainer, cfg: LoopConfig, state: LoopState,
     times.
     """
     mark = timer or (lambda name: None)
-    B = cfg.batch_size
+    B = state.scenes.batch_size
     ecfg = cfg.env
+    executor = resolve_executor(cfg)
     dev = state.scenes.device
 
     # --- Observe (main.py:108-117) ---
@@ -182,7 +217,7 @@ def train_step(trainer: Trainer, cfg: LoopConfig, state: LoopState,
         scores.gra_conf, scores.suc_conf, scores.gs_conf, valid,
         obs.seg.centers, method=ecfg.method, is_ets=ecfg.is_ets,
         is_testing=ecfg.is_testing, explore_prob=explore_prob,
-        generator=state.generator)
+        generator=state.generator, scene_slice=state.scene_slice)
     mark("score")
 
     # --- Delayed training on the previous step (main.py:302-343) ---
@@ -207,8 +242,8 @@ def train_step(trainer: Trainer, cfg: LoopConfig, state: LoopState,
     # --- Geometry + execute (main.py:245-294, 384-396) ---
     geom = env.compute_geometry(choice, obs, ecfg)
     mark("geometry")
-    new_scenes, outcome = batched_env.execute_batched(
-        state.scenes, choice, geom, cfg.primitive)
+    execute = env.execute if executor == "vmap" else batched_env.execute_batched
+    new_scenes, outcome = execute(state.scenes, choice, geom, cfg.primitive)
     mark("execute")
 
     # --- Counters (main.py:304-313, 420-422) ---
@@ -230,11 +265,10 @@ def train_step(trainer: Trainer, cfg: LoopConfig, state: LoopState,
     done = env.episode_done(next_number, no_change, sim_ok, episode_succ,
                             episode_iter, ecfg)
     fresh = scene_mod.reset_scene(
-        state.generator, B, dev, ecfg.is_cluttered, ecfg.is_testing, 0,
-        catalogs=env.resolve_catalogs(ecfg))
-    fresh = stepper.run_steps_batched(fresh, fresh.gripper,
-                                      cfg.reset_settle_steps,
-                                      cfg.primitive.stepper)
+        state.generator, cfg.batch_size, dev, ecfg.is_cluttered, ecfg.is_testing,
+        cfg.reset_settle_steps, cfg.primitive.stepper,
+        catalogs=env.resolve_catalogs(ecfg), scene_slice=state.scene_slice,
+        run=_run_steps(cfg))
     scenes_next = new_scenes.where(done, fresh)
     zi = torch.zeros_like(episode_iter)
     counters_next = EpisodeCounters(
@@ -275,5 +309,5 @@ def train_step(trainer: Trainer, cfg: LoopConfig, state: LoopState,
     )
     new_state = LoopState(scenes=scenes_next, trainer=new_trainer,
                           counters=counters_next, prev=prev,
-                          generator=state.generator)
+                          generator=state.generator, scene_slice=state.scene_slice)
     return new_state, metrics

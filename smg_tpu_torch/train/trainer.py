@@ -27,7 +27,10 @@ train forward, as the JAX trainer's fast paths are DenseNet-only
 
 The Trainer owns the online net, the target net (a copy whose BatchNorm
 buffers freeze between syncs) and torch.optim.Adam; TrainerState carries
-the iteration. Master weights are f32; the trunks compute in the model's
+the iteration. `Trainer.reducer` is None except under data parallelism
+over more than one rank, where parallel/sharded.py sets it: the update
+then sums the valid count, the gradients and the running statistics over
+the ranks, so that it computes the one-process update of the whole batch. Master weights are f32; the trunks compute in the model's
 dtype (bf16 in production).
 """
 
@@ -105,6 +108,7 @@ class Trainer:
         self.model = AffordanceNet(cfg.model).to(self.device).eval()
         self.target = copy.deepcopy(self.model).requires_grad_(False)
         self.opt = self.new_optimizer()
+        self.reducer = None   # parallel/sharded.py's Reducer, over > 1 rank
 
     def new_optimizer(self) -> torch.optim.Adam:
         """optax.adam's update: lr * m_hat / (sqrt(v_hat) + eps), no decay."""
@@ -278,7 +282,11 @@ class Trainer:
             for bn, mv in new.items():
                 stats.setdefault(bn, []).append((idx, mv))
         loss_b = torch.where(exp.valid, loss_b, torch.zeros_like(loss_b))
-        loss = loss_b.sum() / exp.valid.sum().clamp(min=1)
+        n_valid = exp.valid.sum()
+        red = self.reducer
+        if red is not None:
+            n_valid = red.all_sum(n_valid)
+        loss = loss_b.sum() / n_valid.clamp(min=1)
         loss.backward()
         # optax steps every parameter (moment decay, step count); torch's
         # Adam skips one whose grad is None (unused styles, gs_head, a batch
@@ -286,14 +294,24 @@ class Trainer:
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if red is not None:
+            red.sum_grads(list(model.parameters()))
+            loss = red.all_sum(loss)
         self.opt.step()
         with torch.no_grad():
+            per_scene = {}
             for bn, parts in stats.items():
+                per_scene[bn] = []
                 for k, old in enumerate((bn.running_mean, bn.running_var)):
-                    per_scene = old.expand(B, -1).clone()
+                    ps = old.expand(B, -1).clone()
                     for idx, mean_var in parts:
-                        per_scene[idx] = mean_var[k]
-                    old.copy_(per_scene.mean(dim=0))
+                        ps[idx] = mean_var[k]
+                    per_scene[bn].append(ps)
+            new = (red.mean_stats(model, per_scene, B) if red is not None else
+                   {bn: [ps.mean(dim=0) for ps in v] for bn, v in per_scene.items()})
+            for bn, (mean, var) in new.items():
+                bn.running_mean.copy_(mean)
+                bn.running_var.copy_(var)
         state = TrainerState(iteration=state.iteration + 1)
         if cfg.method == "reinforcement":
             self.maybe_sync_target(state)

@@ -12,10 +12,10 @@ unchanged, e.g.
 raises when there is none. `--obj_mesh_dir` takes a directory with
 enveloping/ and sucking/ .obj meshes (fitted by utils/meshes.py) or the
 reference's datasets/{training,testing} names; `--trunk tiny` selects the
-small trunk; `--segmentation learned` reads `--segmenter_checkpoint`.
-Flag values whose modules the port does not have yet stop the parse with
-SystemExit naming the ROADMAP.md item that queues them: `--data_parallel`
-above 1 and `--pretrained_trunks`.
+small trunk; `--segmentation learned` reads `--segmenter_checkpoint`;
+`--pretrained_trunks` takes a cli.pretrain_trunks checkpoint;
+`--data_parallel N` shards the scenes over N processes launched by
+torchrun (one card each).
 """
 
 from __future__ import annotations
@@ -109,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_iterations", type=int, default=0,
                    help="stop after this many steps (0 = episode-based)")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="devices to shard the scenes over (only 1 so far)")
+                   help="processes (one card each, launched by torchrun "
+                        "--nproc_per_node N) to shard the scenes over")
     p.add_argument("--segmentation", default="exact",
                    choices=["exact", "learned"],
                    help="instance segmentation: the renderer's exact "
@@ -119,16 +120,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="segmenter params (cli.train_segmenter) for "
                         "--segmentation learned")
     p.add_argument("--pretrained_trunks", default="",
-                   help="pretrained trunk checkpoint (not supported yet)")
+                   help="pretrained trunk checkpoint (cli.pretrain_trunks) for "
+                        "the three trunks of both nets")
     p.add_argument("--imagery_every", type=int, default=1,
                    help="save scene-0 heightmaps, action overlays and the "
                         "RGB-D frame every K iterations (0 = never)")
     return p
-
-
-def _not_ported(flag: str, item: str) -> SystemExit:
-    return SystemExit(f"{flag}: not ported to smg_tpu_torch yet "
-                      f"(ROADMAP.md section 1, {item})")
 
 
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
@@ -139,10 +136,9 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
             "--heightmap_resolution: only the reference default 0.002 is "
             f"supported (got {args.heightmap_resolution})"
         )
-    if args.data_parallel > 1:
-        raise _not_ported("--data_parallel > 1", "item 7, data parallelism")
-    if args.pretrained_trunks:
-        raise _not_ported("--pretrained_trunks", "item 6, pretraining")
+    if args.data_parallel < 1 or args.batch_size % args.data_parallel:
+        raise SystemExit(f"--batch_size {args.batch_size} must be divisible by "
+                         f"--data_parallel {args.data_parallel}")
     if os.path.isdir(os.path.join(args.obj_mesh_dir, "enveloping")):
         for sub in ("enveloping", "sucking"):
             d = os.path.join(args.obj_mesh_dir, sub)

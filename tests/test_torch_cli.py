@@ -3,9 +3,10 @@ the CPU.
 
 - Flags: the reference command lines give the same info/config.json keys
   and values under both packages' parse_args, apart from the fields that
-  only one side has (listed below); the flag values whose modules are not
-  ported stop with SystemExit naming the ROADMAP item, and a mesh
-  directory without .obj meshes stops.
+  only one side has (listed below); --pretrained_trunks and
+  --data_parallel parse, a --data_parallel that does not divide the batch
+  and a heightmap resolution other than the reference's stop with
+  SystemExit, and a mesh directory without .obj meshes stops.
 - Log rows: one numpy StepMetrics through JAX's log_step_metrics and the
   port's (directly, and through fetch_metrics from tensors) gives
   byte-identical .log.txt files, across a step with finished episodes and
@@ -21,7 +22,12 @@ the CPU.
   primitive phases trains 2 iterations into the tree that
   scripts/analyze_results.py::summarize reads, a --continue_logging run
   resumes at iteration 3, a testing run loads the snapshot; cli.smoke runs
-  its cycle.
+  its cycle; cli.pretrain_trunks writes a checkpoint that
+  --pretrained_trunks puts into the three trunks of both nets; with
+  --data_parallel 2 over two gloo ranks (as under torchrun) rank 0 writes
+  the run tree of the one-process run: the same actions and rewards, the
+  loss and labels to relative 1e-5 (tests/test_torch_parallel.py holds
+  the sharded step itself), and --data_parallel outside torchrun stops.
 """
 
 import dataclasses
@@ -68,13 +74,14 @@ REFERENCE_CMDS = [
     "--future_reward_discount 0.7 --continue_logging --logging_directory x",
     "--is_sim --method reinforcement --is_pe --is_oo --batch_size 32 --trunk tiny "
     "--segmentation learned --segmenter_checkpoint s --training_episode 160",
+    "--is_sim --method reinforcement --is_ets --is_pe --is_oo --batch_size 32 "
+    "--data_parallel 4 --pretrained_trunks logs/trunk_pretrain",
 ]
 # info/config.json fields that only one package has.
 JAX_ONLY = {
     ("train", "model", "num_rotations"),
     ("train", "model", "tied_ets_head"), ("train", "fast_eval"),
     ("train", "fast_train"), ("train", "unroll_styles"),
-    ("loop", "executor"),
 }
 PORT_ONLY = {("train", "model", "block_config"), ("device",)}
 
@@ -122,13 +129,20 @@ def test_device_flag():
 
 
 @pytest.mark.parametrize("argv,item", [
-    ("--data_parallel 2", "item 7"),
-    ("--pretrained_trunks p", "item 6"),
     ("--heightmap_resolution 0.004", "heightmap_resolution"),
+    ("--batch_size 8 --data_parallel 3", "divisible"),
 ])
 def test_unported_flags_stop(argv, item):
     with pytest.raises(SystemExit, match=item):
         cfg_mod.parse_args(argv.split())
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    ("--batch_size 8 --data_parallel 2", "data_parallel", 2),
+    ("--pretrained_trunks p.pt", "pretrained_trunks", "p.pt"),
+])
+def test_ported_flags_parse(argv, field, value):
+    assert getattr(cfg_mod.parse_args(argv.split()), field) == value
 
 
 def test_mesh_dir_stops(tmp_path):
@@ -358,6 +372,67 @@ def test_run_train_resume_test(tmp_path, capsys):
     test_dir = Path(out["run_dir"])
     assert not (test_dir / "models" / "snapshot").exists()
     assert _analyze().summarize(str(test_dir))["transitions"] == 2
+
+
+def test_pretrained_trunks_run(tmp_path, capsys):
+    """cli.pretrain_trunks (tiny trunk, 2 steps) writes a checkpoint;
+    --pretrained_trunks puts its trunk into the three trunks of the online
+    and the target net, whose heads keep their init, and trains on."""
+    from smg_tpu_torch.cli import pretrain_trunks
+
+    ckpt = str(tmp_path / "trunk.pt")
+    res = pretrain_trunks.train(2, 2, ckpt, trunk="tiny", log_every=1, device="cpu")
+    assert len(res["losses"]) == 2 and all(np.isfinite(res["losses"]))
+    assert "pretrain step 2/2 | recon loss" in capsys.readouterr().out
+    flags = ["--cpu", "--method", "reinforcement", "--is_pe", "--is_oo", "--batch_size", "2",
+             "--trunk", "tiny", "--pretrained_trunks", ckpt, "--imagery_every", "0",
+             "--logging_directory", str(tmp_path / "run")]
+    cfg = _small(cfg_mod.parse_args(flags + ["--max_iterations", "1"]))
+    trainer = Trainer(cfg.train, device="cpu")
+    from smg_tpu_torch.train.loop import init_loop
+
+    init_loop(cfg.seed, trainer, cfg.loop)
+    head = {k: v.clone() for k, v in trainer.model.grasp_head.state_dict().items()}
+    checkpoints.load_pretrained(trainer, ckpt)
+    want = {k[len("trunk."):]: v for k, v in checkpoints.load_params(ckpt).items()
+            if k.startswith("trunk.")}
+    for net in (trainer.model, trainer.target):
+        for part in ("grasp_trunk", "suction_trunk", "gs_trunk"):
+            for k, v in getattr(net, part).state_dict().items():
+                assert torch.equal(v, want[k]), (part, k)
+        for k, v in net.grasp_head.state_dict().items():
+            assert torch.equal(v, head[k]), k
+    out = cli.run(cfg)
+    assert out["iterations"] == 1
+    assert f"pretrained trunks loaded from: {ckpt}" in capsys.readouterr().out
+
+
+def test_data_parallel_run(tmp_path):
+    from smg_tpu_torch.parallel import dryrun
+
+    import test_torch_parallel_workers as workers
+
+    flags = ["--cpu", "--is_sim", "--method", "reinforcement", "--is_pe", "--is_oo",
+             "--batch_size", "2", "--max_iterations", "2", "--imagery_every", "0"]
+    with pytest.raises(SystemExit, match="torchrun"):
+        cli.run(cfg_mod.parse_args(flags + ["--data_parallel", "2"]))
+    one = Path(cli.run(workers.small_cli_config(
+        flags + ["--logging_directory", str(tmp_path / "one")]))["run_dir"])
+    dryrun.spawn_ranks(workers.cli_worker, 2,
+                       flags + ["--data_parallel", "2", "--logging_directory",
+                                str(tmp_path / "two")],
+                       init_method=f"file://{tmp_path / 'rendezvous'}")
+    (two,) = (tmp_path / "two").iterdir()
+    assert sorted(os.listdir(two / "models" / "ckpt")) == ["2.pt"]
+    assert (two / "models" / "snapshot").is_file()
+    for name in LOG_NAMES:
+        a = np.loadtxt(one / "transitions" / f"{name}.log.txt", ndmin=2)
+        b = np.loadtxt(two / "transitions" / f"{name}.log.txt", ndmin=2)
+        assert a.shape == b.shape, name
+        if name in ("training_loss", "label-value", "predicted-value"):
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-7, err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)
 
 
 def test_smoke_cycle(capsys):

@@ -636,3 +636,73 @@ def test_nms_on_card(dev):
     got = nms.nms(boxes.to(dev), valid.to(dev), 0.40, 16.0, 10035.2).cpu()
     assert torch.equal(got, want)
     assert 0 < int(want.sum()) < int(valid.sum())
+
+
+def test_bn_train_forward_on_card(dev):
+    """Trunk pretraining's train-mode forward (batch-wide BatchNorm, the
+    running statistics updated with the biased variance) on the card
+    against the CPU in float32, a shallow DenseNet at 64 pixels: features
+    and statistics to 1e-4 of the largest (cuDNN's and the CPU's float32
+    convolutions sum in other orders)."""
+    from smg_tpu_torch.models.densenet import DenseNetTrunk
+    from smg_tpu_torch.train.pretrain import ReconstructionModel, PretrainConfig
+    from smg_tpu_torch.models.affordance import ModelConfig
+
+    cfg = PretrainConfig(model=ModelConfig(input_size=64, dtype="float32",
+                                           block_config=(2, 2, 2, 2)))
+    cpu = ReconstructionModel(cfg)
+    card = ReconstructionModel(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev)
+    assert isinstance(cpu.trunk, DenseNetTrunk)
+    x = torch.rand(3, 64, 64, 3, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    want = cpu.trunk(x, train=True)
+    got = card.trunk(x.to(dev), train=True)
+    assert _rel(got.detach().cpu(), want.detach()) <= 1e-4
+    for name, b in cpu.trunk.named_buffers():
+        if "running" in name:
+            assert _rel(dict(card.trunk.named_buffers())[name].cpu(), b) <= 1e-4, name
+
+
+def test_sharded_step_one_rank_on_card(dev, tmp_path, monkeypatch):
+    """make_sharded_step over a one-rank NCCL group at b4 (DenseNet-121 at
+    224, fast_train_conv2="pk", 3-step phases): two training steps' losses and
+    the weights after them bit-equal to the plain train_step's from the
+    same seed (cuDNN's deterministic algorithms in both)."""
+    import dataclasses
+
+    from smg_tpu_torch.envs.primitives import PrimitiveParams
+    from smg_tpu_torch.envs.smg_env import EnvConfig
+    from smg_tpu_torch.models.affordance import ModelConfig
+    from smg_tpu_torch.parallel import mesh, sharded
+    from smg_tpu_torch.train import loop
+    from smg_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    mesh.init_data_parallel(1, "cuda", rank_=0, init_method=f"file://{tmp_path / 'rdzv'}")
+    try:
+        tcfg = TrainConfig(model=ModelConfig(input_size=224), fast_train_conv2="pk",
+                           scene_chunk=4)
+        short = PrimitiveParams(**{f.name: 3 for f in dataclasses.fields(PrimitiveParams)
+                                   if f.name.startswith("steps_")})
+        cfg = loop.LoopConfig(env=EnvConfig(is_pe=True, is_oo=True, settle_steps=10),
+                              batch_size=4, reset_settle_steps=5, primitive=short)
+        out = {}
+        for run in ("sharded", "plain"):
+            trainer = Trainer(tcfg, device=dev)
+            if run == "sharded":
+                state = loop.init_loop(1, trainer, cfg, mesh.scene_slice(4))
+                step = sharded.make_sharded_step(trainer, cfg)
+            else:
+                state = loop.init_loop(1, trainer, cfg)
+                step = lambda s: loop.train_step(trainer, cfg, s)  # noqa: E731
+            losses = []
+            for _ in range(2):
+                state, m = step(state)
+                losses.append(float(m.loss))
+            out[run] = (losses, [p.detach().clone() for p in trainer.model.parameters()])
+        assert out["sharded"][0] == out["plain"][0] and out["plain"][0][1] > 0
+        assert all(torch.equal(a, b) for a, b in zip(out["sharded"][1], out["plain"][1]))
+    finally:
+        mesh.shutdown()
