@@ -14,7 +14,8 @@
    yardsticks), K3 at its three transitions at 224 and at 640 with 104
    images (each beside its own bound and torch.matmul of the pooled
    tensor), K4 at the stem, K5 (the `xla_pk` conv2) at every (H, C_in) at 224 and
-   at 640 with 104 images, K6a/K6b (the train-mode dense layer, forward and
+   at 640 with 104 images (its time per block, beside F.conv2d of its 3x3
+   part at 224), K6a/K6b (the train-mode dense layer, forward and
    backward) at every (H, C_in) at 224 and 640 and at a 6 x 6 block 4 with
    64 images (with their 224 time per dense
    block split by launch name by the profiler, beside the parts' torch.matmul
@@ -672,13 +673,17 @@ def phase_conv2(dev):
     written at its channel offset of a block buffer as the trunk does; per
     block also the plain variant's own (N, H, W, 32) output and the merge
     wrapper (pend kept). The table's times are the 224 pass's; at 640 the
-    kernel alone is timed."""
+    kernel alone is timed. At 224 each layer's 3x3 part alone is also timed
+    as F.conv2d in bf16 channels_last on the same h2 (its yardstick: it
+    computes neither the BN2 prologue nor the rounded taps)."""
+    import torch.nn.functional as F
+
     from smg_tpu_torch.ops import conv2 as k5
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     bf, N = torch.bfloat16, STREAMS
     worst, tot_ms, tot_plain, rows = 0.0, {}, 0.0, []
-    flops = nbytes = 0.0
+    flops = nbytes = conv_ms = 0.0
     for S in SIZES:
         tot_ms[S] = 0.0
         for H, C0, L in densenet_blocks(S):
@@ -704,6 +709,12 @@ def phase_conv2(dev):
                     row["plain_ms"] = cuda_ms(lambda: k5.conv2_bn_relu_plain(h1, a, b, w2),
                                               reps=2, warmup=1)
                     tot_plain += row["plain_ms"]
+                    h2c = torch.relu(h1.float() * a + b).to(bf).permute(0, 3, 1, 2)
+                    wc = w2.reshape(3, 3, 128, 32).permute(3, 2, 0, 1).contiguous(
+                        memory_format=torch.channels_last)
+                    row["conv2d_ms"] = device_ms(lambda: F.conv2d(h2c, wc, padding=1))
+                    conv_ms += row["conv2d_ms"]
+                    del h2c
                     P = N * H * H
                     flops += 2.0 * P * 1152 * 32
                     nbytes += 2.0 * P * (128 + 32) + 2.0 * 1152 * 32 + 8.0 * 128
@@ -721,15 +732,24 @@ def phase_conv2(dev):
                   f"plain / merge variant {errs[0]:.5f} / {errs[1]:.5f} "
                   f"(bound {TOL_BF16:.5f})")
             del buf, h1, pend, merged, own, want
+    split = {S: {H: sum(r["ms"] for r in rows if r["input"] == S and r["H"] == H)
+                 for H, _, _ in densenet_blocks(S)} for S in SIZES}
     DETAIL["K5"] = rows
     DETAIL["K5_pass_ms"] = tot_ms
+    DETAIL["K5_split"] = split
     print(f"K5 one xla_pk trunk pass (58 layers, {N} images): kernel {tot_ms[224]:.3f} ms "
-          f"at 224 (plain {tot_plain:.3f} ms), {tot_ms[640]:.3f} ms at 640")
+          f"at 224 (plain {tot_plain:.3f} ms; its 3x3 part as F.conv2d {conv_ms:.3f} ms), "
+          f"{tot_ms[640]:.3f} ms at 640")
+    for S in SIZES:
+        print(f"K5 split at {S} by block (one pass): " + ", ".join(
+            f"H={H} {ms:.4f} ms" for H, ms in split[S].items()))
     return with_bound({"name": "K5 conv2 BN/ReLU/3x3", "route": "cuda",
                        "source": "smg_tpu_torch/csrc/conv2.cu",
                        "replaces": "smg_tpu/ops/conv2_pallas.py:243",
                        "max_abs_err": worst, "ms": tot_ms[224], "plain_ms": tot_plain,
-                       "library_ms": None}, flops, nbytes, PEAK_BF16)
+                       "library_ms": None, "ms_640": tot_ms[640], "conv2d_ms": conv_ms,
+                       "split_ms": split[224], "split_ms_640": split[640]},
+                      flops, nbytes, PEAK_BF16)
 
 
 def _eval_layers(gen, dev, C0, L):
@@ -760,8 +780,11 @@ def _block_work(N, H, C0, L, epilogue):
     return flops, 2.0 * P * C0 + 2.0 * out + weights
 
 
-# K7's launches by kernel name: its epilogue on a line of its own.
-K7_PARTS = (("gemm_bnrelu", "bottleneck GEMM"), ("conv3x3", "3x3"),
+# K7's launches by kernel name: its epilogue on a line of its own. A layer
+# is one launch, the fused GEMM + h2 + 3x3; the two-launch names are those
+# of older commits (compare_parent.py runs them).
+K7_PARTS = (("dense_layer_sm90", "fused layer"),
+            ("gemm_bnrelu", "bottleneck GEMM"), ("conv3x3", "3x3"),
             ("transition", "transition epilogue"), ("final_bn", "norm5 epilogue"),
             ("gemm_bf16", "transition epilogue"))   # older commits: the WMMA GEMM
 

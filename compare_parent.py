@@ -11,6 +11,9 @@ parent, with this file's chip_smoke.py for every checkout:
 - k3: K3 (the transition) at its three shapes at 224 and 640 with 104
   images: chip_smoke.py's phase_transition (device ms per transition
   beside its bound and torch.matmul of the pooled tensor);
+- k5: K5 (the `xla_pk` conv2) at its 58 layer shapes at 224 and 640:
+  phase_conv2 (device ms per layer, summed per block and pass, beside
+  F.conv2d of the 3x3 part at 224);
 - k7: K7 (the `pallas` dense block) on the four blocks at 224 and 640:
   phase_dense_block (device ms per block, split by launch name);
 - k6: K6 (the train-mode dense layer) at all layer shapes with 64 images:
@@ -56,6 +59,11 @@ def _load(root: Path):
 def run_k3(cs, dev) -> dict:
     kernel = cs.phase_transition(dev)
     return {"kernels": [kernel], "transitions": cs.DETAIL["K3"]}
+
+
+def run_k5(cs, dev) -> dict:
+    kernel = cs.phase_conv2(dev)
+    return {"kernels": [kernel], "layers": cs.DETAIL["K5"], "split": cs.DETAIL["K5_split"]}
 
 
 def run_k7(cs, dev) -> dict:
@@ -109,6 +117,9 @@ def child(what: str, root: Path, label: str, out_dir: Path) -> None:
     if what == "k3":
         print(label, json.dumps({f"{r['input']}/{r['C']}": r["ms"] for r in res["transitions"]}),
               flush=True)
+    if what == "k5":
+        print(label, json.dumps({f"{S}/{H}": ms for S, blocks in res["split"].items()
+                                 for H, ms in blocks.items()}), flush=True)
     if what == "k7":
         print(label, json.dumps({f"{r['input']}/{r['H']}": {"ms": r["ms"], **r["split_ms"]}
                                  for r in res["blocks"] if "ms" in r}), flush=True)
@@ -121,7 +132,7 @@ def child(what: str, root: Path, label: str, out_dir: Path) -> None:
                   f"loss {s['loss']!r} poses {s['pose_digest']!r}", flush=True)
 
 
-RUNS = {"k3": run_k3, "k7": run_k7, "k6": run_k6, "train": run_train}
+RUNS = {"k3": run_k3, "k5": run_k5, "k7": run_k7, "k6": run_k6, "train": run_train}
 
 
 def main(argv):

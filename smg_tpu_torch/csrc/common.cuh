@@ -1,17 +1,18 @@
 // Shared device helpers of the port's kernels: bf16 packing, an affine
 // without FMA contraction (so the kernels round where the plain PyTorch
 // versions do), Hopper's cp.async / ldmatrix / mma.sync wrappers, and the
-// tensor-core building blocks of the DenseNet kernels (K2, K3, K5, K7
-// eval; K6 train):
-//   - gemm_bnrelu_kernel: the bottleneck GEMM of K2, K7 and K6a, pipelined:
+// tensor-core building blocks of the DenseNet kernels (K2, K3, K7's
+// transition epilogue, K6 train):
+//   - gemm_bnrelu_kernel: the bottleneck GEMM of K2 and K6a, pipelined:
 //     a 3-stage cp.async ring of raw x / B tiles, the norm + ReLU applied to
-//     the A fragments in registers (K2, K7: one affine per column) or once
+//     the A fragments in registers (K2: one affine per column) or once
 //     per staged tile (K6a: one per column and image), mma.sync m16n8k16;
 //     128- or 64-row tiles.
-//   - conv3x3_kernel: THE 3x3 / pad-1 convolution 128 -> 32 of every dense
-//     layer (K2, K5, K6a's forward, K7): a persistent grid, tap weights
-//     resident in shared memory, each tile's halo patch staged once by a
-//     double-buffered cp.async, nine shifted ldmatrix views of the patch.
+//   - conv3x3_kernel: the 3x3 / pad-1 convolution 128 -> 32 of K2 and of
+//     K6a's forward: a persistent grid, tap weights resident in shared
+//     memory, each tile's halo patch staged once by a double-buffered
+//     cp.async, nine shifted ldmatrix views of the patch. (K5 and K7 run
+//     their 3x3 on wgmma: conv3x3_sm90.cuh.)
 //   - transition_kernel: the DenseNet transition (K3, and K7's transition
 //     epilogue): BN, ReLU and the 2x2 mean of a tile of pooled pixels over
 //     all C channels into shared memory once (the raw pixels through a
@@ -133,7 +134,7 @@ __device__ __forceinline__ uint32_t bn_relu2(uint32_t x, float2 a, float2 b) {
 // are read), B (K, 128) bf16, f32 sums; the result goes through
 // `epi.store2(row, col, v0, v1)` (2 consecutive columns).
 //   The affine (a, b) comes from `aff`: one per column for every row
-//   (ColumnAffine: K2, K7), applied to each A fragment in registers between
+//   (ColumnAffine: K2), applied to each A fragment in registers between
 //   ldmatrix and the MMA; or one per column and image, rows being the
 //   pixels of consecutive images (K6a's per-image BatchNorm, kInSmem):
 //   aff.stage() puts a k-slice's (a, b) for each of the tile's images
@@ -332,19 +333,15 @@ gemm_bnrelu_kernel(const bf16* __restrict__ x, int ldx, Affine aff,
   }
 }
 
-// The bottleneck's epilogue (K2, K7): h2 = bf16(relu(t a2 + b2)) into a
-// (P, 128) scratch, from the f32 sum t rounded to bf16 first (RoundT, K2's
-// h1) or as it is (K7).
-template <bool RoundT>
+// K2's bottleneck epilogue: h2 = bf16(relu(h1 a2 + b2)) into a (P, 128)
+// scratch, from the f32 sum rounded to bf16 first (K2's h1).
 struct Bn2Epilogue {
   bf16* h2;
   const float* a2;
   const float* b2;
   __device__ void store2(int p, int col, float v0, float v1) const {
-    if (RoundT) {
-      v0 = round_bf16(v0);
-      v1 = round_bf16(v1);
-    }
+    v0 = round_bf16(v0);
+    v1 = round_bf16(v1);
     *reinterpret_cast<uint32_t*>(h2 + (size_t)p * GEMMN_N + col) =
         pack2(bn_relu(v0, a2[col], b2[col]), bn_relu(v1, a2[col + 1], b2[col + 1]));
   }
@@ -376,7 +373,7 @@ cudaError_t gemm_affine(int bm, const bf16* x, int ldx, Affine aff, const bf16* 
   return cudaGetLastError();
 }
 
-// The GEMM with one affine per column (K2, K7): a, b (K,) f32.
+// The GEMM with one affine per column (K2): a, b (K,) f32.
 template <class Epilogue>
 cudaError_t gemm_bnrelu(int bm, const bf16* x, int ldx, const float* a, const float* b,
                         const bf16* Bm, int M, int K, Epilogue epi, cudaStream_t stream) {
@@ -391,11 +388,9 @@ cudaError_t gemm_bnrelu(int bm, const bf16* x, int ldx, const float* a, const fl
 // memory; `src.apply(p, c8, raw)` computes the conv's input from 8 of them
 // (the prologue: BN + ReLU, or nothing when Src::kIdentity). Pixels off the
 // image contribute exact zeros (the zero padding applies to the computed
-// input, so relu(b) never leaks in). With RoundTaps (the default) each
-// tap's 128-channel partial is rounded to bf16 before the f32 tap sum, as
-// the TPU kernels' packed-taps products are; without it each tap's f32
-// partial is summed as it is (K7's taps_packed=False). Taps are summed in
-// order 0..8.
+// input, so relu(b) never leaks in). Each tap's 128-channel partial is
+// rounded to bf16 before the f32 tap sum, as the TPU kernels' packed-taps
+// products are. Taps are summed in order 0..8.
 //
 // The design. The output is cut into tiles of `images` whole images or of
 // `rows` x `cols` of one image (ops/conv2.py::conv3x3_plan chooses by a cost
@@ -418,9 +413,10 @@ cudaError_t gemm_bnrelu(int bm, const bf16* x, int ldx, const float* a, const fl
 // must move ~1.1 GB (0.26 / 0.34 ms on the H100); this design is held to
 // mma.sync's issue rate on the busiest sub-partition of each SM, then the
 // patches' staging, and at the small layers of blocks 3-4 each launch's
-// fixed cost (the weights' load, one tile per block). wgmma (twice the
-// tensor rate, A from these registers, B from the resident weights) is the
-// next step.
+// fixed cost (the weights' load, one tile per block). K5 and K7 run the
+// same 3x3 on wgmma (conv3x3_sm90.cuh: A from these ldmatrix registers, B
+// from the resident weights, BN2 staged off the critical path); this
+// kernel stays K2's and K6a's until they move there (ROADMAP).
 // ---------------------------------------------------------------------------
 
 constexpr int C3_CIN = 128;
@@ -454,7 +450,7 @@ __device__ __forceinline__ void c3_load(int tap, int ks, const int (&qc)[2], int
     ldmatrix_x4_trans(wbase + (tap * C3_CIN + ks * 16) * 64 + bsw[n2], bfr[n2]);
 }
 
-template <class Src, bool RoundTaps>
+template <class Src>
 __global__ void __launch_bounds__(C3_THREADS, 1)
 conv3x3_kernel(Src src, const bf16* __restrict__ w2, bf16* __restrict__ out, int N, int H,
                int W, int ld, int c_off, Conv3x3Plan plan) {
@@ -606,7 +602,7 @@ conv3x3_kernel(Src src, const bf16* __restrict__ w2, bf16* __restrict__ out, int
           for (int n = 0; n < 4; ++n)
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              total[f][n][q] += RoundTaps ? round_bf16(part[f][n][q]) : part[f][n][q];
+              total[f][n][q] += round_bf16(part[f][n][q]);
       }
 #pragma unroll
       for (int f = 0; f < 2; ++f) {
@@ -631,8 +627,8 @@ conv3x3_kernel(Src src, const bf16* __restrict__ w2, bf16* __restrict__ out, int
   cp_async_wait<0>();
 }
 
-// The 3x3's source where it lies in device memory as it is: K2's and
-// K7's h2 scratch (P, 128).
+// The 3x3's source where it lies in device memory as it is: K2's h2
+// scratch (P, 128).
 struct RawRows {
   static constexpr bool kIdentity = true;
   const bf16* h2;
@@ -641,15 +637,15 @@ struct RawRows {
 };
 
 // Launch the 3x3 above with `plan` on `stream`.
-template <class Src, bool RoundTaps = true>
+template <class Src>
 cudaError_t conv3x3(Src src, const bf16* w2, bf16* out, int N, int H, int W, int ld,
                     int c_off, Conv3x3Plan plan, cudaStream_t stream) {
   static const cudaError_t set =
-      cudaFuncSetAttribute(conv3x3_kernel<Src, RoundTaps>,
+      cudaFuncSetAttribute(conv3x3_kernel<Src>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, C3_SMEM_MAX);
   if (set != cudaSuccess) return set;
   if (N * H * W == 0) return cudaGetLastError();
-  conv3x3_kernel<Src, RoundTaps><<<plan.grid, C3_THREADS, plan.smem_bytes, stream>>>(
+  conv3x3_kernel<Src><<<plan.grid, C3_THREADS, plan.smem_bytes, stream>>>(
       src, w2, out, N, H, W, ld, c_off, plan);
   return cudaGetLastError();
 }

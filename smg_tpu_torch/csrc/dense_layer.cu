@@ -60,7 +60,7 @@ extern "C" int smg_dense_layer(bf16* buf, const float* a1, const float* b1,
   const int P = N * H * W;
   if (P == 0) return (int)cudaGetLastError();
   cudaError_t err = smg::gemm_bnrelu(gemm_bm, buf, ld, a1, b1, w1, P, c_in,
-                                     smg::Bn2Epilogue<true>{h2, a2, b2}, stream);
+                                     smg::Bn2Epilogue{h2, a2, b2}, stream);
   if (err != cudaSuccess) return (int)err;
   const smg::Conv3x3Plan plan{c3_images, c3_rows, c3_cols, c3_grid, c3_smem};
   return (int)smg::conv3x3(smg::RawRows{h2}, w2, buf, N, H, W, ld, c_in, plan, stream);

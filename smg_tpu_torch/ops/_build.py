@@ -47,12 +47,14 @@ SIGNATURES = {
     # buf, a1, b1, w1, a2, b2, w2, h2 scratch; N, H, W, ld, C_in; the
     # GEMM's tile rows; the 3x3 plan (5 ints, conv2.Conv3x3Plan.args); stream
     "smg_dense_layer": [P] * 8 + [I] * 6 + [I] * 5 + [P],
-    # h1, a, b, w2, out; N, H, W, out_ld; the 3x3 plan; stream
+    # h1, a, b, w2, out; N, H, W, out_ld; the tile plan (5 ints,
+    # conv2.conv2_plan); stream
     "smg_conv2_bn_relu": [P] * 5 + [I] * 4 + [I] * 5 + [P],
-    # buf, a1, b1, w1, a2, b2, w2, at, bt, wt, h2 scratch, out;
-    # N, H, W, C0, L, C_out, out_ld, epilogue, taps_packed; the GEMM's tile
-    # rows; the 3x3 plan; the transition's plan (zeros for final_bn); stream
-    "smg_dense_block": [P] * 12 + [I] * 10 + [I] * 5 + [I] * 5 + [P],
+    # buf, a1, b1, w1, a2, b2, w2, at, bt, wt, out; N, H, W, C0, L, C_out,
+    # out_ld, epilogue, taps_packed; the fused layer's tile plan (5 ints,
+    # dense_block.dense_plan); the transition's plan (zeros for final_bn);
+    # stream
+    "smg_dense_block": [P] * 11 + [I] * 9 + [I] * 5 + [I] * 5 + [P],
     # buf, w1, s1, bi1, w2, s2, bi2, h1, block moments, st2, h1 sums
     # scratch; N, H, W, ld, C_in, the moments' row stride, channels with
     # moments already; the GEMM's tile rows and image slots; the h1

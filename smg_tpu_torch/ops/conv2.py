@@ -20,10 +20,12 @@ is the merge variant (a 128-lane group buffer whose other lanes are kept);
 w2 is (9, 128, 32) with tap = 3 * dy + dx (the TPU's packed (128, 288)
 holds tap t at columns [32 t, 32 t + 32)).
 
-The kernel is common.cuh's conv3x3_kernel, the 3x3 of every dense-layer
-kernel (K2, K5, K6a, K7). conv3x3_plan below cuts its output into tiles
-whose halo patches fit in shared memory beside the resident tap weights;
-each wrapper passes the plan to its kernel as ints.
+The kernel (csrc/conv2.cu) runs the 3x3 on wgmma from an h2 patch that a
+producer warpgroup stages and transforms while the tensor cores work on
+the tile before; conv2_plan below cuts its output into tiles. The same
+3x3 (csrc/conv3x3_sm90.cuh) is K7's. conv3x3_plan is the tile plan of
+common.cuh's mma.sync 3x3, K2's and K6a's. Each wrapper passes its plan
+to its kernel as ints.
 """
 
 from __future__ import annotations
@@ -76,6 +78,24 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+# K5's kernel (csrc/conv2.cu): the tap weights, two h2 patch buffers (the
+# producer stages the raw h1 into one and transforms it there) and four
+# mbarriers.
+C2_BARRIER_BYTES = 4 * 8
+C2_PATCH_PIXELS = (C3_SMEM_LIMIT - C3_WEIGHT_BYTES - C2_BARRIER_BYTES) // (
+    2 * C3_PIXEL_BYTES)                                                       # 309
+C2_TASK = 64                  # output pixels of a warpgroup task (wgmma's M)
+C2_WARPGROUPS = 2             # that take a tile's tasks in turn
+# Its cost model, in units of one warpgroup task (nine taps of 8 wgmma
+# m64n32k16): staging and transforming a patch pixel (overlapped with the
+# tensor work of the tile before), and a tile's fixed cost (the buffer
+# hand-over, the stores' address math). Fitted to the card by
+# k5k7_plans.py (40 tilings of each of the 8 trunk shapes; rms log error
+# 0.076, one task ~1.9 us; H100 80GB HBM3).
+C2_STAGE_COST = 0.015
+C2_TILE_COST = 0.8
+
+
 def _tile_count(N, H, W, images, rows, cols):
     return _cdiv(N, images) * _cdiv(H, rows) * _cdiv(W, cols)
 
@@ -99,12 +119,9 @@ def conv3x3_plan(N: int, H: int, W: int, sms: int = H100_SMS) -> Conv3x3Plan:
     each row count). Of these, the cheapest by _tile_cost among those that
     give at least `sms` tiles, when any does; else the cheapest. Memoized:
     a layer's wrapper asks for the same plan on every call."""
-    cap = C3_PATCH_PIXELS
-    cands = []
-    for images in range(1, min(N, cap // ((H + 2) * (W + 2))) + 1):
-        cands.append((_cdiv(N, _cdiv(N, images)), H, W))
-    for rows in range(1, min(H, cap // 3 - 2) + 1):
-        cols = _cdiv(W, _cdiv(W, cap // (rows + 2) - 2))
+    cands = _whole_images(N, H, W, C3_PATCH_PIXELS)
+    for rows in range(1, min(H, C3_PATCH_PIXELS // 3 - 2) + 1):
+        cols = _cdiv(W, _cdiv(W, C3_PATCH_PIXELS // (rows + 2) - 2))
         cands.append((1, _cdiv(H, _cdiv(H, rows)), cols))
     full = [c for c in cands if _tile_count(N, H, W, *c) >= sms]
     images, rows, cols = min(full or cands, key=lambda c: (
@@ -113,6 +130,50 @@ def conv3x3_plan(N: int, H: int, W: int, sms: int = H100_SMS) -> Conv3x3Plan:
     patch = images * (rows + 2) * (cols + 2)
     return Conv3x3Plan(images, rows, cols, tiles, min(tiles, sms),
                        C3_WEIGHT_BYTES + 2 * patch * C3_PIXEL_BYTES)
+
+
+def _whole_images(N, H, W, cap):
+    """Tiles of whole images whose patches hold at most `cap` pixels:
+    (images, H, W), the image count spread evenly over the tiles."""
+    return [(_cdiv(N, _cdiv(N, images)), H, W)
+            for images in range(1, min(N, cap // ((H + 2) * (W + 2))) + 1)]
+
+
+def tile_candidates(N, H, W, cap):
+    """The tilings whose patch holds at most `cap` pixels: whole images
+    where one image's patch fits (their halo is the zero padding: no halo
+    loads, no recomputed rows), else every rows x cols of one image whose
+    row and column bands are spread evenly (rows = cdiv(H, bands))."""
+    whole = _whole_images(N, H, W, cap)
+    if whole:
+        return whole
+    rows = sorted({_cdiv(H, by) for by in range(1, H + 1)})
+    cols = sorted({_cdiv(W, bx) for bx in range(1, W + 1)})
+    return [(1, r, c) for r in rows for c in cols if (r + 2) * (c + 2) <= cap]
+
+
+def _c2_cost(N, H, W, images, rows, cols, sms):
+    """K5's estimated time: the rounds of tiles the persistent grid walks,
+    each as long as the longer of its tensor work (the two warpgroups take
+    the 64-pixel tasks in turn) and the staging of the next tile's patch,
+    plus the tile's fixed cost; and the first patch's staging."""
+    tiles = _tile_count(N, H, W, images, rows, cols)
+    tasks = _cdiv(images * rows * cols, C2_TASK)
+    stage = C2_STAGE_COST * images * (rows + 2) * (cols + 2)
+    return stage + _cdiv(tiles, sms) * (max(_cdiv(tasks, C2_WARPGROUPS), stage) + C2_TILE_COST)
+
+
+@functools.lru_cache(maxsize=None)
+def conv2_plan(N: int, H: int, W: int, sms: int = H100_SMS) -> Conv3x3Plan:
+    """K5's tiles over N images of H x W: the cheapest by _c2_cost of
+    tile_candidates whose patch fits C2_PATCH_PIXELS (ties: fewer tiles).
+    The grid is min(tiles, SMs). Memoized."""
+    images, rows, cols = min(tile_candidates(N, H, W, C2_PATCH_PIXELS), key=lambda c: (
+        _c2_cost(N, H, W, *c, sms), _tile_count(N, H, W, *c)))
+    tiles = _tile_count(N, H, W, images, rows, cols)
+    patch = images * (rows + 2) * (cols + 2)
+    return Conv3x3Plan(images, rows, cols, tiles, min(tiles, sms),
+                       C3_WEIGHT_BYTES + 2 * patch * C3_PIXEL_BYTES + C2_BARRIER_BYTES)
 
 
 def conv3x3_plain(h2, w2, dt, round_taps: bool = True):
@@ -161,7 +222,7 @@ def conv2_bn_relu(h1, a, b, w2, out=None):
     _build.check_aligned(h1=h1, w2=w2)
     _build.launch("smg_conv2_bn_relu", h1.data_ptr(), a.data_ptr(), b.data_ptr(),
                   w2.data_ptr(), out.data_ptr(), N, H, W, ld,
-                  *conv3x3_plan(N, H, W, _build.sm_count(h1.device)).args())
+                  *conv2_plan(N, H, W, _build.sm_count(h1.device)).args())
     launches += 1
     return out
 

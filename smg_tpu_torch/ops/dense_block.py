@@ -20,21 +20,45 @@ the whole buffer (dense_block_pallas.py:374-403):
   final_bn    out = bf16(feat * at + bt), no ReLU  -> (N, H, W, Cf)
 
 One wrapper call runs the whole block and its epilogue and counts one
-launch. The TPU's BlockGeom (B_tile, row bands with an L-row halo, width
-and channel padding, the selection-matrix append) existed for 16 MB of
-VMEM and has no counterpart: any N, H, W.
+launch. Each layer is one launch of a fused kernel (csrc/dense_block.cu)
+that keeps the layer's h2 in shared memory: per tile of output pixels it
+runs the bottleneck GEMM on every in-image pixel of the tile's patch (the
+tile and one pixel all round: a band's halo rows are recomputed), writes h2
+into the patch, then runs the wgmma 3x3 from there. dense_plan below
+chooses the tiles. The TPU's BlockGeom (B_tile, row bands with an L-row
+halo, width and channel padding, the selection-matrix append) existed for
+16 MB of VMEM and has no counterpart: any N, H, W.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from smg_tpu_torch.ops import _build
-from smg_tpu_torch.ops.conv2 import BOTTLENECK, GROWTH, N_TAPS, conv3x3_plain, conv3x3_plan
-from smg_tpu_torch.ops.dense_layer import gemm_rows
+from smg_tpu_torch.ops.conv2 import (BOTTLENECK, C2_TASK, C2_WARPGROUPS, C3_PIXEL_BYTES,
+                                     C3_SMEM_LIMIT, GROWTH, H100_SMS, N_TAPS, Conv3x3Plan,
+                                     _cdiv, _tile_count, conv3x3_plain, tile_candidates)
 from smg_tpu_torch.ops.transition import transition_plan
 
 launches = 0
+
+# The fused layer kernel's shared memory: the tap weights and the GEMM's
+# ring (4 stages of a 32-channel slice of 128 pixel rows, w1's 32 rows and
+# their norm1), then the h2 patch and 8 mbarriers.
+DL_STAGES = 4
+DL_BK = 32                    # channels of a GEMM k-slice
+DL_ROWS = 128                 # GEMM rows per pass: two warpgroups of 64
+DL_H2_OFFSET = N_TAPS * BOTTLENECK * GROWTH * 2 + DL_STAGES * (
+    DL_BK * BOTTLENECK * 2 + DL_ROWS * DL_BK * 2 + 2 * DL_BK * 4)             # 140,288
+DL_BARRIER_BYTES = 2 * DL_STAGES * 8
+DL_PATCH_PIXELS = (C3_SMEM_LIMIT - DL_H2_OFFSET - DL_BARRIER_BYTES) // C3_PIXEL_BYTES  # 359
+# The cost model, in units of one 3x3 warpgroup task (as conv2's): a
+# 32-channel k-slice of one GEMM pass (128 rows, both warpgroups). Fitted to
+# the card by k5k7_plans.py (40 tilings of each of the 8 trunk blocks; rms
+# log error 0.118; H100 80GB HBM3), where a per-tile fixed cost fit as 0.
+DL_SLICE_COST = 0.06
 
 EPILOGUES = ("transition", "final_bn")
 
@@ -72,6 +96,55 @@ def _layers(packed):
                packed["w1"][off:off + c], packed["a2"][l], packed["b2"][l],
                packed["w2"][l])
         off += c
+
+
+def _region(N, H, W, images, rows, cols):
+    """The GEMM rows of each tile of a tiling: the in-image pixels of its
+    patch (the tile and one pixel all round, clipped to the image), as
+    (tile count, rows) pairs for the tile sizes that occur."""
+    def bands(n, size):
+        # (count, clipped extent + halo) of the bands of `size` over n.
+        out = {}
+        for b0 in range(0, n, size):
+            ext = min(b0 + size + 1, n) - max(b0 - 1, 0)
+            out[ext] = out.get(ext, 0) + 1
+        return out
+
+    imgs = {}
+    for n0 in range(0, N, images):
+        g = min(images, N - n0)
+        imgs[g] = imgs.get(g, 0) + 1
+    return [(ci * cy * cx, g * ey * ex) for g, ci in imgs.items()
+            for ey, cy in bands(H, rows).items() for ex, cx in bands(W, cols).items()]
+
+
+def _dl_cost(N, H, W, C0, L, images, rows, cols, sms):
+    """The fused layers' estimated time over the block's L layers: the rounds
+    of tiles the persistent grid walks, each tile its GEMM passes over all
+    of its patch's in-image pixels (k-slices of 32 channels) and its 3x3
+    tasks (the two warpgroups in turn)."""
+    tiles = _tile_count(N, H, W, images, rows, cols)
+    passes = sum(n * _cdiv(r, DL_ROWS) for n, r in _region(N, H, W, images, rows, cols)) / tiles
+    tasks = _cdiv(_cdiv(images * rows * cols, C2_TASK), C2_WARPGROUPS)
+    slices = sum((C0 + GROWTH * l) // DL_BK for l in range(L))
+    return _cdiv(tiles, sms) * (passes * slices * DL_SLICE_COST + L * tasks)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_plan(N: int, H: int, W: int, C0: int, L: int, sms: int = H100_SMS) -> Conv3x3Plan:
+    """The fused layer kernel's tiles for a block of L layers over N images
+    of H x W: the cheapest by _dl_cost of conv2.tile_candidates whose patch
+    fits DL_PATCH_PIXELS (ties: the one that keeps more SMs busy, then
+    fewer tiles); one plan for all the block's layers. Memoized."""
+    def key(c):
+        tiles = _tile_count(N, H, W, *c)
+        return _dl_cost(N, H, W, C0, L, *c, sms), -min(tiles, sms), tiles
+
+    images, rows, cols = min(tile_candidates(N, H, W, DL_PATCH_PIXELS), key=key)
+    tiles = _tile_count(N, H, W, images, rows, cols)
+    patch = images * (rows + 2) * (cols + 2)
+    return Conv3x3Plan(images, rows, cols, tiles, min(tiles, sms),
+                       DL_H2_OFFSET + patch * C3_PIXEL_BYTES + DL_BARRIER_BYTES)
 
 
 def dense_block_apply_plain(buf, packed, ep, epilogue: str, taps_packed: bool = True):
@@ -141,14 +214,12 @@ def dense_block_apply(buf, packed, ep, epilogue: str, *, taps_packed: bool = Tru
     out_ld = _build.check_nhwc_view(out, "out", torch.bfloat16, out_shape)
     _build.check_aligned(buf=buf, at=ep["at"], bt=ep["bt"],
                          **{k: packed[k] for k in ("a1", "b1", "w1", "w2")})
-    h2 = torch.empty((N * H * W, BOTTLENECK), dtype=torch.bfloat16, device=buf.device)
-    sms = _build.sm_count(buf.device)
     _build.launch("smg_dense_block", buf.data_ptr(), packed["a1"].data_ptr(),
                   packed["b1"].data_ptr(), packed["w1"].data_ptr(),
                   packed["a2"].data_ptr(), packed["b2"].data_ptr(),
                   packed["w2"].data_ptr(), ep["at"].data_ptr(), ep["bt"].data_ptr(),
-                  wt_ptr, h2.data_ptr(), out.data_ptr(), N, H, W, c0, L, C_out,
-                  out_ld, code, int(taps_packed), gemm_rows(N * H * W, sms),
-                  *conv3x3_plan(N, H, W, sms).args(), *tr)
+                  wt_ptr, out.data_ptr(), N, H, W, c0, L, C_out,
+                  out_ld, code, int(taps_packed),
+                  *dense_plan(N, H, W, c0, L, _build.sm_count(buf.device)).args(), *tr)
     launches += 1
     return out

@@ -141,14 +141,20 @@ def test_dense_layer_tilings(dev, shape, tile):
     assert _rel(buf[..., C_in:], ref[..., C_in:]) <= TOL_BF16
 
 
-@pytest.mark.parametrize("shape,tile", TILINGS[1:] + [((8, 56, 56), (1, 4, 28))])
+# K5's own tilings (ops/conv2.py::conv2_plan): row and column bands of 26 x
+# 26 images (the last row band 5 high), whole 7 x 7 images, narrow column
+# bands of 5 x 160 images (the last one 1 wide), 7 x 14 bands of 56 x 56.
+K5_TILINGS = [((48, 26, 26), (1, 7, 13)), ((300, 7, 7), (1, 7, 7)),
+              ((2, 5, 160), (1, 5, 3)), ((8, 56, 56), (1, 7, 14))]
+
+
+@pytest.mark.parametrize("shape,tile", K5_TILINGS)
 def test_conv2_tilings(dev, shape, tile):
-    """K5 under each tiling, 4 x 28 tiles of 56 x 56 images too, written at
-    a channel offset."""
-    from smg_tpu_torch.ops import _build, conv2
+    """K5 under each tiling of its plan, written at a channel offset."""
+    from smg_tpu_torch.ops import _build
     from smg_tpu_torch.ops import conv2 as k5
 
-    plan = conv2.conv3x3_plan(*shape, _build.sm_count(dev))
+    plan = k5.conv2_plan(*shape, _build.sm_count(dev))
     assert (plan.images, plan.rows, plan.cols) == tile
     g = _gen(dev, sum(shape) + 1)
     bf = torch.bfloat16
@@ -165,8 +171,9 @@ def test_conv2_tilings(dev, shape, tile):
     (48, 26, 26, "transition", True), (300, 8, 6, "final_bn", False),
     (2, 4, 160, "final_bn", True)])
 def test_dense_block_tilings(dev, N, H, W, epilogue, taps_packed):
-    """K7 with row bands ending inside an image, two-image tiles and column
-    bands (2 x 54 of 4 x 160, the last band 52 wide)."""
+    """K7 under its plan's tiles (ops/dense_block.py::dense_plan) at these
+    shapes: row bands ending inside an image (26 x 26), four whole images a
+    tile (8 x 6), column bands of 4 x 160 images."""
     from smg_tpu_torch.ops import dense_block as k7
 
     g = _gen(dev, N + H + W)
@@ -188,6 +195,87 @@ def test_dense_block_tilings(dev, N, H, W, epilogue, taps_packed):
     ref = buf.clone()
     got = k7.dense_block_apply(buf, packed, ep, epilogue, taps_packed=taps_packed)
     want = k7.dense_block_apply_plain(ref, packed, ep, epilogue, taps_packed)
+    assert _rel(buf[..., C0:], ref[..., C0:]) <= TOL_BF16
+    assert _rel(got, want) <= TOL_BF16
+
+
+# Each branch of K5's and K7's plans on the card: whole images from 1 x 1 to
+# 14 x 14 (several a tile at 600 x 4 x 4 and 401 x 7 x 7, whose last tile is
+# one image), bands whose patches recompute (K7) or re-read (K5) their halo
+# rows and columns, ragged last bands.
+K5_PLAN_SHAPES = [(5, 1, 1), (4, 2, 3), (3, 3, 3), (7, 4, 4), (2, 5, 5), (3, 6, 6),
+                  (2, 7, 7), (13, 14, 14), (600, 4, 4), (401, 7, 7), (1, 40, 40),
+                  (2, 30, 17)]
+
+
+@pytest.mark.parametrize("shape", K5_PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv2_plans(dev, shape):
+    """K5 against its plain version under whole-image and band tiles, at a
+    channel offset of a wider buffer whose other channels stay; a second
+    run gives the same bits."""
+    from smg_tpu_torch.ops import _build
+    from smg_tpu_torch.ops import conv2 as k5
+
+    N, H, W = shape
+    plan = k5.conv2_plan(N, H, W, _build.sm_count(dev))
+    whole = (H + 2) * (W + 2) <= k5.C2_PATCH_PIXELS
+    assert ((plan.rows, plan.cols) == (H, W)) == whole
+    g = _gen(dev, N * H * W + 5)
+    bf = torch.bfloat16
+    h1 = torch.randn(shape + (128,), generator=g, device=dev).to(bf)
+    a, b = _affine(g, dev, 128)
+    w2 = (torch.randn((9, 128, 32), generator=g, device=dev) * 0.03).to(bf)
+    buf = torch.randn(shape + (96,), generator=g, device=dev).to(bf)
+    ref = buf.clone()
+    k5.conv2_bn_relu(h1, a, b, w2, out=buf[..., 32:64])
+    first = buf.clone()
+    k5.conv2_bn_relu(h1, a, b, w2, out=buf[..., 32:64])
+    assert torch.equal(buf, first)
+    assert _rel(buf[..., 32:64], k5.conv2_bn_relu_plain(h1, a, b, w2)) <= TOL_BF16
+    assert torch.equal(buf[..., :32], ref[..., :32]) and torch.equal(buf[..., 64:], ref[..., 64:])
+
+
+K7_PLAN_CASES = [(3, 1, 1, 64, 2, "final_bn", True), (5, 2, 2, 64, 2, "transition", False),
+                 (4, 3, 3, 96, 2, "final_bn", False), (2, 5, 5, 64, 3, "final_bn", True),
+                 (3, 6, 6, 128, 2, "transition", True), (2, 7, 7, 512, 2, "final_bn", False),
+                 (3, 14, 14, 256, 2, "transition", False), (2, 30, 30, 64, 2, "transition", True),
+                 (1, 37, 23, 64, 2, "final_bn", False)]
+
+
+@pytest.mark.parametrize("N,H,W,C0,L,epilogue,taps_packed", K7_PLAN_CASES)
+def test_dense_block_plans(dev, N, H, W, C0, L, epilogue, taps_packed):
+    """K7 against its plain version under whole-image and band tiles (the
+    GEMM recomputing the band's halo), both epilogues and both tap sums:
+    the block input stays, and a second run gives the same bits."""
+    from smg_tpu_torch.ops import _build
+    from smg_tpu_torch.ops import dense_block as k7
+
+    plan = k7.dense_plan(N, H, W, C0, L, _build.sm_count(dev))
+    whole = (H + 2) * (W + 2) <= k7.DL_PATCH_PIXELS
+    assert ((plan.rows, plan.cols) == (H, W)) == whole
+    g = _gen(dev, N * H * W + C0 + L)
+    bf = torch.bfloat16
+    layers = [(c,) + _affine(g, dev, c)
+              + ((torch.randn((c, 128), generator=g, device=dev) * c ** -0.5).to(bf),)
+              + _affine(g, dev, 128)
+              + ((torch.randn((9, 128, 32), generator=g, device=dev) * 0.03).to(bf),)
+              for c in (C0 + 32 * l for l in range(L))]
+    Cf = C0 + 32 * L
+    at, bt = _affine(g, dev, Cf)
+    if epilogue == "transition":
+        wt = (torch.randn((Cf, 128), generator=g, device=dev) * Cf ** -0.5).to(bf)
+        ep = k7.pack_transition(at, bt, wt)
+    else:
+        ep = k7.pack_final_bn(at, bt)
+    packed = k7.pack_dense_block(layers)
+    buf = torch.randn((N, H, W, Cf), generator=g, device=dev).to(bf)
+    ref = buf.clone()
+    got = k7.dense_block_apply(buf, packed, ep, epilogue, taps_packed=taps_packed)
+    first, got_first = buf.clone(), got.clone()
+    got = k7.dense_block_apply(buf, packed, ep, epilogue, taps_packed=taps_packed)
+    assert torch.equal(buf, first) and torch.equal(got, got_first)
+    want = k7.dense_block_apply_plain(ref, packed, ep, epilogue, taps_packed)
+    assert torch.equal(buf[..., :C0], ref[..., :C0])
     assert _rel(buf[..., C0:], ref[..., C0:]) <= TOL_BF16
     assert _rel(got, want) <= TOL_BF16
 

@@ -1,6 +1,8 @@
 """The CUDA kernels' tile plans, which the wrappers compute in Python and
 pass to the kernels as ints: K1's (ops/contact.py::contact_plan), the
-shared 3x3's (ops/conv2.py::conv3x3_plan, used by K2, K5, K6a and K7), K2's
+mma.sync 3x3's (ops/conv2.py::conv3x3_plan, used by K2 and K6a), K5's
+(ops/conv2.py::conv2_plan) and K7's fused layer's
+(ops/dense_block.py::dense_plan), K2's
 GEMM tile rows, K3's (ops/transition.py::transition_plan, also K7's
 transition epilogue), and K6's (ops/dense_layer_train.py: dgrad_plan,
 dw2_plan, dw1_split, and image_plan: the pixel tiles of dy1 and K6a's GEMM
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from smg_tpu_torch.ops import contact, conv2, dense_layer
+from smg_tpu_torch.ops import dense_block as k7
 from smg_tpu_torch.ops import dense_layer_train as k6
 from smg_tpu_torch.ops import transition as k3
 
@@ -98,6 +101,73 @@ def test_conv3x3_plan_tiles(shape, tile):
     assert (plan.images, plan.rows, plan.cols) == tile
 
 
+# K5 and K7 on one 104-image trunk pass at 224 and 640: (N, H, W, C0, L)
+# of each dense block; and tests/test_torch_gpu.py's K5 / K7 shapes.
+K5K7_PATH = [(104, s // (4 << i), s // (4 << i), c0, L) for s in (224, 640)
+             for i, (c0, L) in enumerate(((64, 6), (128, 12), (256, 24), (512, 16)))]
+K5_CARD = [(3, 7, 7), (3, 8, 12), (3, 5, 9), (48, 26, 26), (300, 7, 7), (2, 5, 160),
+           (8, 56, 56), (5, 1, 1), (4, 2, 3), (3, 3, 3), (7, 4, 4), (2, 5, 5), (3, 6, 6),
+           (2, 7, 7), (13, 14, 14), (600, 4, 4), (401, 7, 7), (1, 40, 40), (2, 30, 17)]
+K7_CARD = [(2, 8, 6, 64, 2), (2, 7, 7, 128, 3), (2, 7, 5, 96, 2), (48, 26, 26, 64, 2),
+           (300, 8, 6, 64, 2), (2, 4, 160, 64, 2), (5, 10, 10, 192, 2), (5, 10, 6, 448, 2),
+           (3, 6, 6, 960, 2), (44, 28, 28, 448, 2), (3, 1, 1, 64, 2), (5, 2, 2, 64, 2),
+           (4, 3, 3, 96, 2), (2, 5, 5, 64, 3), (3, 6, 6, 128, 2), (2, 7, 7, 512, 2),
+           (3, 14, 14, 256, 2), (2, 30, 30, 64, 2), (1, 37, 23, 64, 2)]
+
+
+def _check_sm90_plan(plan, N, H, W, cap):
+    """What K5's and K7's kernels assume of a plan: every output pixel in
+    exactly one tile, every tile taken once by the persistent grid, the
+    patch within `cap` pixels, whole-image tiles wherever one image's patch
+    fits (and then only those), bands of one image otherwise."""
+    cover = np.zeros((N, H, W), np.int32)
+    for n0, y0, x0, gn, th, tw in _tiles(plan, N, H, W):
+        assert gn > 0 and th > 0 and tw > 0
+        cover[n0:n0 + gn, y0:y0 + th, x0:x0 + tw] += 1
+    assert (cover == 1).all()
+    taken = sorted(t for b in range(plan.grid) for t in range(b, plan.tiles, plan.grid))
+    assert taken == list(range(plan.tiles)) and plan.grid == min(plan.tiles, SMS)
+    patch = plan.images * (plan.rows + 2) * (plan.cols + 2)
+    assert patch <= cap
+    if (H + 2) * (W + 2) <= cap:
+        assert (plan.rows, plan.cols) == (H, W)
+    else:
+        assert plan.images == 1
+    return patch
+
+
+@pytest.mark.parametrize("shape", [s[:3] for s in K5K7_PATH] + K5_CARD,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv2_plan(shape):
+    """K5's plan: the tap weights, two h2 patches and the barriers fit
+    227 KB."""
+    N, H, W = shape
+    plan = conv2.conv2_plan(N, H, W, SMS)
+    patch = _check_sm90_plan(plan, N, H, W, conv2.C2_PATCH_PIXELS)
+    assert plan.smem_bytes == (conv2.C3_WEIGHT_BYTES + 2 * patch * conv2.C3_PIXEL_BYTES
+                               + conv2.C2_BARRIER_BYTES)
+    assert plan.smem_bytes <= SMEM_227KB
+
+
+@pytest.mark.parametrize("shape", K5K7_PATH + K7_CARD, ids=lambda s: "x".join(map(str, s)))
+def test_dense_plan(shape):
+    """K7's fused layer plan: the tap weights, the GEMM's ring, the h2 patch
+    and the barriers fit 227 KB; each tile's GEMM rows (the in-image pixels
+    of its patch, halo included) number at least its own pixels and at most
+    its patch's."""
+    N, H, W, C0, L = shape
+    plan = k7.dense_plan(N, H, W, C0, L, SMS)
+    patch = _check_sm90_plan(plan, N, H, W, k7.DL_PATCH_PIXELS)
+    assert plan.smem_bytes == k7.DL_H2_OFFSET + patch * conv2.C3_PIXEL_BYTES + k7.DL_BARRIER_BYTES
+    assert plan.smem_bytes <= SMEM_227KB
+    regions = k7._region(N, H, W, plan.images, plan.rows, plan.cols)
+    assert sum(n for n, _ in regions) == plan.tiles
+    assert max(r for _, r in regions) <= patch
+    assert sum(n * r for n, r in regions) >= N * H * W
+    if (plan.rows, plan.cols) == (H, W):
+        assert sum(n * r for n, r in regions) == N * H * W   # no halo: zero padding
+
+
 @pytest.mark.parametrize("B", [1, 5, 32, 130, 1024])
 def test_contact_plan(B):
     S, T = 108, 145
@@ -132,6 +202,8 @@ def test_gemm_rows():
 
 @pytest.mark.parametrize("plan, args", [
     (conv2.conv3x3_plan, (104, 56, 56, SMS)),
+    (conv2.conv2_plan, (104, 56, 56, SMS)),
+    (k7.dense_plan, (104, 56, 56, 64, 6, SMS)),
     (contact.contact_plan, (108, 145, 32)),
     (dense_layer.gemm_rows, (104 * 7 * 7, SMS)),
     (k6.dgrad_plan, (64, 56, 56, SMS)),
