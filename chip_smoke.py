@@ -86,10 +86,22 @@
    training steps under fast_train_conv2="pk" through make_sharded_step,
    then the plain train_step from the same seed: the losses bit-equal;
    K1-K4 and K6's launches.
-12. Prints the kernel table as one JSON line (each kernel's launches also
+12. The rotations path: the production trainer with num_rotations 16 and
+   the ETS head untied, ETS on (8 scenes a chunk x (16 rotated scene
+   images + 12 masks) a grasp or suction trunk call). On the initial
+   observation: the scores (32, 12, 16), rotation 0 against an R = 1
+   trainer with the same weights (within 1e-3 of the spread; bitwise or
+   not reported), two scenes' scores at every rotation and their ETS pairs
+   (through gs_head) within 5% of the bf16 module forward's largest value,
+   and the score phase at R = 16 and R = 1 (events, device time, trunk
+   images per scene). Then one act step and 2 training steps: best_pix's
+   rotation columns in [0, 16), finite losses, gs_head's parameters and
+   statistics moved by a step whose batch executed ETS (at least one
+   must), and K4 / K3 / K2 launched 1 / 3 / 58 times per eval trunk call.
+13. Prints the kernel table as one JSON line (each kernel's launches also
    per path: act, train, parity, cli, perception, pretrain, vmap,
-   sharded), the card line, and last {"ok": true, "device": {...}}. Any
-   failed check raises (exit code != 0).
+   sharded, rotations), the card line, and last {"ok": true, "device":
+   {...}}. Any failed check raises (exit code != 0).
 
 Options: `--out DIR` writes the details (chip_smoke.json, and with
 --profile the profiler table) to DIR; `--profile` adds one act step under
@@ -2282,6 +2294,217 @@ def drive_sharded_path(kernels):
     DETAIL["sharded_path"] = {**res, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# The rotations path: num_rotations 16, the ETS head untied
+# ---------------------------------------------------------------------------
+
+ROT_R = 16
+ROT_KERNELS = ("K1", "K2", "K3", "K4", "K6a", "K6b")
+ROT_TRAIN_STEPS = 2
+ROT_CHECK_SCENES = 2   # scenes held to the module forward
+ROT0_BOUND = 1e-3      # rotation 0 against R = 1, in units of the score spread
+SCORE_BOUND = 0.05     # against the bf16 module forward, of the largest |score|
+
+
+class TrunkCalls:
+    """While active, records the images of every fast_trunk.trunk_features_eval
+    call (the eval trunk: one K4, three K3 and 58 K2 launches each)."""
+
+    def __enter__(self):
+        from smg_tpu_torch.models import fast_trunk
+
+        self.mod, self.orig, self.images = fast_trunk, fast_trunk.trunk_features_eval, []
+
+        def counted(trunk, x, backend="xla_fl"):
+            self.images.append(int(x.shape[0]))
+            return self.orig(trunk, x, backend)
+
+        fast_trunk.trunk_features_eval = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.trunk_features_eval = self.orig
+
+
+def _module_gap(got, want, valid) -> float:
+    """max |got - want| over valid entries, over the largest valid |want|."""
+    g, w = got[valid].float(), want[valid].float()
+    check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all()), "non-finite scores")
+    return float((g - w).abs().max() / w.abs().max().clamp(min=1e-6))
+
+
+def rotation_checks(trainer, one, state) -> dict:
+    """On the initial observation: the R = 16 scores' shapes; rotation 0
+    against `one` (R = 1, the same weights); two scenes' scores (every
+    rotation, and the ETS pairs through gs_head) against the bf16 module
+    forward; the score phase at R = 16 and R = 1 timed (CUDA events and
+    profiler device time) with its trunk images per scene."""
+    from smg_tpu_torch.envs import smg_env
+    from smg_tpu_torch.train.trainer import _PI, _PJ
+
+    obs = smg_env.observe(state.scenes)
+    depth = smg_env.masked_scene_depth(obs)
+    masks, valid = obs.seg.masks, obs.seg.valid
+    out = {}
+    with torch.no_grad():
+        sc = trainer.score_scene_batch(state.trainer, depth, masks, valid)
+        s1 = one.score_scene_batch(state.trainer, depth, masks, valid)
+    for name in ("gra_conf", "suc_conf"):
+        got = getattr(sc, name)
+        check(tuple(got.shape) == (B_MAIN, 12, ROT_R), f"{name} shape {tuple(got.shape)}")
+        g0, w = got[..., 0][valid], getattr(s1, name)[..., 0][valid]
+        spread = float(w.max() - w.min())
+        gap = float((g0 - w).abs().max()) / max(spread, 1e-9)
+        out[f"{name}_rot0_gap_over_spread"] = gap
+        out[f"{name}_rot0_bitwise"] = bool(torch.equal(g0, w))
+        print(f"rotations: {name} {tuple(got.shape)}; rotation 0 against R = 1: max gap "
+              f"{gap:.3e} of the spread {spread:.4f} (bound {ROT0_BOUND}), bitwise "
+              f"{out[f'{name}_rot0_bitwise']}")
+        check(gap <= ROT0_BOUND, f"{name}: rotation 0 differs from R = 1 by {gap:.3e}")
+    pi = torch.as_tensor(_PI, device=masks.device)
+    pj = torch.as_tensor(_PJ, device=masks.device)
+    pair_ok = valid[:, pi] & valid[:, pj]
+    ets_gap = (sc.gs_conf[:, pi, pj] - s1.gs_conf[:, pi, pj])[pair_ok].abs().max()
+    out["gs_conf_rot0_gap"] = float(ets_gap)
+    print(f"rotations: ETS scores (rotation 0) against R = 1: max gap {float(ets_gap):.3e}")
+    check(float(ets_gap) <= ROT0_BOUND * float(s1.gs_conf[:, pi, pj][pair_ok].abs().max()),
+          "ETS scores differ from R = 1")
+
+    n = ROT_CHECK_SCENES
+    scene_img = trainer._prep(depth[:n])
+    obj_ins = trainer._prep(depth[:n, None] * masks[:n])
+    rot = trainer._rotated_scenes(scene_img)
+    for style, name in ((0, "gra_conf"), (1, "suc_conf")):
+        ref = trainer.model.score(rot, obj_ins, style)[..., 0]          # (n, 12, R)
+        v = valid[:n, :, None].expand_as(ref)
+        out[f"{name}_vs_module"] = _module_gap(getattr(sc, name)[:n], ref, v)
+    pair_ins = trainer._prep(depth[:n, None] * (masks[:n, pi] | masks[:n, pj]))
+    ref = trainer.model.score(scene_img, pair_ins, 2)[..., 0]           # gs_head
+    out["gs_conf_vs_module"] = _module_gap(sc.gs_conf[:n, pi, pj], ref, pair_ok[:n])
+    print(f"rotations: {n} scenes against the bf16 module forward (AffordanceNet.score): "
+          + ", ".join(f"{k} {out[k]:.4f}" for k in ("gra_conf_vs_module", "suc_conf_vs_module",
+                                                    "gs_conf_vs_module"))
+          + f" of the largest |score| (bound {SCORE_BOUND})")
+    for k in ("gra_conf_vs_module", "suc_conf_vs_module", "gs_conf_vs_module"):
+        check(out[k] < SCORE_BOUND, f"rotations: {k} {out[k]:.4f}")
+
+    for tag, t in (("R16", trainer), ("R1", one)):
+        fn = lambda t=t: t.score_scene_batch(state.trainer, depth, masks, valid)  # noqa: E731
+        with torch.no_grad(), TrunkCalls() as calls:
+            fn()
+        with torch.no_grad():
+            out[f"score_ms_{tag}"] = cuda_ms(fn, reps=3, warmup=1)
+            out[f"score_device_ms_{tag}"] = sum(_profile_by_kernel(fn, 2).values())
+        out[f"trunk_images_per_scene_{tag}"] = sum(calls.images) / B_MAIN
+        out[f"trunk_calls_{tag}"] = calls.images
+    print("rotations: the score phase (b32, ETS on) at R = 16 / R = 1: "
+          f"{out['score_ms_R16']:.2f} / {out['score_ms_R1']:.2f} ms (events), "
+          f"{out['score_device_ms_R16']:.2f} / {out['score_device_ms_R1']:.2f} ms device; "
+          f"trunk images a scene {out['trunk_images_per_scene_R16']:g} / "
+          f"{out['trunk_images_per_scene_R1']:g}; calls {out['trunk_calls_R16']}")
+    return out
+
+
+def _gs_head_state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.gs_head.state_dict().items()}
+
+
+def drive_rotations_path(dev, kernels):
+    """The ninth path: the production trainer (make_prod_trainer(32,
+    fast_train_conv2="pk")) with num_rotations 16 and the ETS head untied,
+    ETS on: init_loop, the checks of rotation_checks, then with the counts
+    at 0 one act step (testing) and ROT_TRAIN_STEPS training steps. Holds
+    best_pix's rotation columns in [0, 16), finite losses, gs_head's
+    parameters and running statistics moving in a step whose batch
+    executed ETS, and K2 / K3 / K4's launches at 58 / 3 / 1 per eval
+    trunk call."""
+    from smg_tpu_torch.train import loop
+    from smg_tpu_torch.train.prod_config import make_prod_loop_cfg, make_prod_trainer
+    from smg_tpu_torch.train.trainer import Trainer
+
+    prod = make_prod_trainer(B_MAIN, device=dev, fast_train_conv2="pk")
+    rcfg = dataclasses.replace(prod.cfg, is_ets=True, model=dataclasses.replace(
+        prod.cfg.model, num_rotations=ROT_R, tied_ets_head=False))
+    del prod
+    trainer = Trainer(rcfg, device=dev)
+    one = Trainer(dataclasses.replace(rcfg, model=dataclasses.replace(rcfg.model,
+                                                                      num_rotations=1)),
+                  device=dev)
+    cfg = make_prod_loop_cfg(B_MAIN, is_testing=False)
+    cfg = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, is_ets=True))
+    act_cfg = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, is_testing=True))
+    check(trainer.model.head(2) is trainer.model.gs_head, "the untied head")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = loop.init_loop(SEED + 4, trainer, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    one.model.load_state_dict(trainer.model.state_dict())
+    res = {"init_s": init_s, **rotation_checks(trainer, one, state)}
+    del one
+    torch.cuda.empty_cache()
+
+    steps, ets_steps = [], 0
+    zero_counts()
+    with TrunkCalls() as calls:
+        for i, step_cfg in enumerate([act_cfg] + [cfg] * ROT_TRAIN_STEPS):
+            exp = state.prev.exp
+            ets = bool(((exp.style == 2) & exp.valid).any()) and not step_cfg.env.is_testing
+            before = _gs_head_state(trainer.model)
+            phases = {}
+            last = [time.perf_counter()]
+            t0 = last[0]
+            state, m = loop.train_step(trainer, step_cfg, state,
+                                       timer=step_timer(phases, last))
+            total = time.perf_counter() - t0
+            loss = float(m.loss)
+            rot_cols = m.best_pix[:, [0, 3]]
+            check(bool(((rot_cols >= 0) & (rot_cols < ROT_R)).all()),
+                  f"rotations step {i}: best_pix rotation columns {rot_cols.tolist()}")
+            check(math.isfinite(loss), f"rotations step {i}: loss {loss}")
+            for name, t in (("label_value", m.label_value),
+                            ("predicted_value", m.predicted_value)):
+                check(_finite(t), f"rotations step {i}: non-finite {name}")
+            after = _gs_head_state(trainer.model)
+            moved = {k: not torch.equal(v, after[k]) for k, v in before.items()}
+            if ets:
+                ets_steps += 1
+                check(all(moved[k] for k in moved if not k.endswith("num_batches_tracked")),
+                      f"rotations step {i}: an ETS batch left gs_head's "
+                      f"{[k for k, v in moved.items() if not v]}")
+            steps.append({"step": i, "testing": step_cfg.env.is_testing, "seconds": total,
+                          "loss": loss, "phases": {k: round(v, 6) for k, v in phases.items()},
+                          "actions": m.action.tolist(), "ets_batch": ets,
+                          "rotations": rot_cols.tolist()})
+            print(f"rotations {'act' if step_cfg.env.is_testing else 'train'} step {i}: "
+                  f"{total:.3f} s  " + "  ".join(f"{k} {v:.3f}" for k, v in phases.items())
+                  + f"  loss {loss:.5f}  ETS batch {ets}  rotations used "
+                  f"{sorted(set(rot_cols.flatten().tolist()))}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(ets_steps > 0, "rotations: no training step's batch executed an ETS action")
+    n_calls = len(calls.images)
+    short = {name.split()[0]: n for name, n in counts.items()}
+    print(f"launches in the rotations path ({n_calls} eval trunk calls, "
+          f"{sum(calls.images)} images): " + ", ".join(f"{k} {n}" for k, n in short.items()))
+    blocks = sum(trainer.model.grasp_trunk.block_config)
+    for name, want in (("K4", n_calls), ("K3", 3 * n_calls), ("K2", blocks * n_calls)):
+        check(short[name] == want, f"rotations: {name} launched {short[name]}, the "
+              f"{n_calls} trunk calls imply {want}")
+    for k in kernels:
+        k["launches_rotations"] = counts[k["name"]]
+        if k["name"].split()[0] in ROT_KERNELS:
+            check(counts[k["name"]] > 0, f"{k['name']} was not launched by the rotations path")
+    act_r1 = DETAIL.get("act_path", {}).get("steps", [])
+    print("rotations: the act step's phases at R = 16 "
+          + "  ".join(f"{k} {v:.3f}" for k, v in steps[0]["phases"].items())
+          + (" beside the act path's (R = 1, no ETS) " + "  ".join(
+              f"{k} {v:.3f}" for k, v in act_r1[-1]["phases"].items()) if act_r1 else ""))
+    DETAIL["rotations_path"] = {**res, "steps": steps, "launches": counts,
+                                "trunk_calls": calls.images, "ets_steps": ets_steps}
+    del trainer, state
+
+
 def update_modes_on_snapshot(dev, path: str) -> dict:
     """compare_update_modes at a trained run's weights: the CLI's held
     training config (python -m smg_tpu_torch.cli.main --is_ets --is_pe
@@ -2358,6 +2581,7 @@ def main(argv):
     drive_vmap_path(dev, kernels)
     torch.cuda.empty_cache()
     drive_sharded_path(kernels)
+    drive_rotations_path(dev, kernels)
 
     DETAIL["card"] = card
     DETAIL["kernels"] = kernels
@@ -2366,7 +2590,8 @@ def main(argv):
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_b1024",
             "bound_ms_b1024")
-    paths = ("act", "train", "parity", "cli", "perception", "pretrain", "vmap", "sharded")
+    paths = ("act", "train", "parity", "cli", "perception", "pretrain", "vmap", "sharded",
+             "rotations")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in keys if k in kern},
          "launches_by_path": {p: kern[f"launches_{p}"] for p in paths}}

@@ -10,9 +10,10 @@ neither jax nor flax.
 - `load_affordance_params`: Flax AffordanceNet `params` + `batch_stats`
   into the port's AffordanceNet. Flax conv kernels are HWIO and become
   OIHW; BatchNorm scale/bias/mean/var map to weight/bias/running_mean/
-  running_var. The tied ETS head (affordance.py:54) is carried over as it
-  is: gs_head gets its own (unused) weights, and the model reads
-  suction_head for style 2. `dump_affordance_params` goes back.
+  running_var. All three heads are carried, gs_head included: the model
+  reads it for style 2 when ModelConfig.tied_ets_head is False, and
+  suction_head when it is True (affordance.py:54, :126-130).
+  `dump_affordance_params` goes back.
   The tiny trunk's children carry the Flax names too (conv0-4, norm0-4,
   proj), so the same functions carry a tiny-trunk AffordanceNet.
 - `load_segmenter_params` / `dump_segmenter_params`: Flax SlotSegmenter

@@ -127,7 +127,9 @@ def make_model(input_size: int, seed: int = 0, device="cuda",
     """The check's model: a trained snapshot's weights, or else conv
     kernels 1.5 x LeCun normal (He init x CONV_SCALE) with alive BatchNorm
     statistics, made on the CPU from `seed`; then moved. The weights do not
-    depend on dtype, the compute does."""
+    depend on dtype, the compute does. Style 2 scores through
+    `AffordanceNet.head(2)`, which follows the model's tied_ets_head
+    (scripts/decision_parity.py:102)."""
     model = AffordanceNet(ModelConfig(method="reinforcement", input_size=input_size,
                                       dtype=dtype, block_config=block_config))
     if snapshot:

@@ -16,7 +16,8 @@ plus the batched-run knobs --batch_size N, --input_size 224|640 and
 --trunk densenet121|tiny, --obj_mesh_dir <dir of enveloping/ + sucking/
 .obj meshes>, --segmentation learned --segmenter_checkpoint P (a
 cli.train_segmenter checkpoint), --pretrained_trunks P (a
-cli.pretrain_trunks checkpoint: the trunks of both nets start from it),
+cli.pretrain_trunks checkpoint: the trunks of both nets start from it,
+after a resume as in the JAX package),
 and --cpu to run on the CPU. Data parallelism over N cards:
 
     torchrun --nproc_per_node N -m smg_tpu_torch.cli.main ... \
@@ -237,12 +238,6 @@ def _run(cfg, trainer: Trainer, logger: Logger | None, parallel: bool) -> dict:
     say("initializing scenes + model...")
     scene_slice = mesh.scene_slice(cfg.loop.batch_size) if parallel else None
     state = init_loop(cfg.seed, trainer, cfg.loop, scene_slice)
-    if cfg.pretrained_trunks:
-        # The self-supervised warm start where the reference loaded
-        # ImageNet weights (models.py:22-24,308-310); before any resume or
-        # snapshot, which then take precedence.
-        checkpoints.load_pretrained(trainer, cfg.pretrained_trunks)
-        say(f"pretrained trunks loaded from: {cfg.pretrained_trunks}")
     iteration = 0
     episode_base = 0
     if cfg.continue_logging:
@@ -256,6 +251,16 @@ def _run(cfg, trainer: Trainer, logger: Logger | None, parallel: bool) -> dict:
             iteration = state.trainer.iteration
             say(f"Resumed trainer state from checkpoint step {latest}"
                 f" (iteration {iteration})")
+
+    if cfg.pretrained_trunks:
+        # The self-supervised warm start where the reference loaded
+        # ImageNet weights (models.py:22-24,308-310), in the JAX package's
+        # order (smg_tpu/cli/main.py:174-228): after a resume, whose Adam
+        # moments and iteration stay, the trunks of the online net become
+        # the pretrained one and the target net its copy; a snapshot
+        # loaded next wins.
+        checkpoints.load_pretrained(trainer, cfg.pretrained_trunks)
+        say(f"pretrained trunks loaded from: {cfg.pretrained_trunks}")
 
     if cfg.load_snapshot and cfg.snapshot_file:
         # Params + BatchNorm running statistics into both nets (the

@@ -1,18 +1,29 @@
 """Two-stream affordance networks (port of smg_tpu/models/affordance.py).
 
 Three trunks (grasp / suction / grasp-then-suction), DenseNet-121 or with
-ModelConfig.trunk = "tiny" the tiny trunk, and three heads; style 2 reads
-the suction head, as the reference does (models.py:144; the JAX package's
-default tied_ets_head=True). DenseNet-121 eval scoring runs through
+ModelConfig.trunk = "tiny" the tiny trunk, and three heads. Style 2 reads
+the suction head, as the reference does (models.py:144), while
+ModelConfig.tied_ets_head is True (the default); with False it reads its
+own gs_head. DenseNet-121 eval scoring runs through
 models/fast_trunk.py::score_eval, the update's train-mode forward
 through ::score_train; `AffordanceNet.score` is the module eval forward,
 the oracle they are held to, and the tiny trunk's eval scoring (as in the
-JAX trainer, whose fast paths are DenseNet-only). The JAX options no
-caller sets (num_rotations > 1, an untied ETS head) are not ported.
+JAX trainer, whose fast paths are DenseNet-only).
+
+ModelConfig.num_rotations R > 1 scores R in-network rotations of the scene
+stream (the reference's affine_grid + grid_sample, models.py:85-93):
+`rotate_image_nearest` turns each scene image, in plain torch as the JAX
+package computes it outside any kernel, and the eval scores take a
+(B, R, S, S, 3) scene stream. Eval BatchNorm works per image, so each
+mask stream's features are computed once and paired with every
+rotation's scene features in the head: B (R + M) trunk images, where the
+JAX package recomputes the masks for every rotation (B R (1 + M)) for the
+same scores.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -44,6 +55,8 @@ class ModelConfig:
     method: str = "reinforcement"   # 'reactive' | 'reinforcement'
     trunk: str = "densenet121"      # 'densenet121' | 'tiny'
     input_size: int = 640
+    num_rotations: int = 1          # reference gnum/snum_rotations = 1
+    tied_ets_head: bool = True      # reference models.py:144
     dtype: str = "bfloat16"
     block_config: Sequence[int] = BLOCK_CONFIG
 
@@ -102,7 +115,7 @@ class AffordanceNet(nn.Module):
         return (self.grasp_trunk, self.suction_trunk, self.gs_trunk)[style]
 
     def head(self, style: int):
-        if style == STYLE_ETS:
+        if style == STYLE_ETS and self.cfg.tied_ets_head:
             return self.suction_head  # the reference's tied ETS head
         return (self.grasp_head, self.suction_head, self.gs_head)[style]
 
@@ -111,7 +124,8 @@ class AffordanceNet(nn.Module):
                    backend: str = "xla_fl") -> torch.Tensor:
         """Eval scores (B, M, num_out) f32 of DenseNet-121 trunks; scene
         features shared across the M object slots (affordance.py:132-165).
-        backend: see fast_trunk.trunk_features_eval."""
+        A (B, R, S, S, 3) scene stream, R rotations of each scene, gives
+        (B, M, R, num_out). backend: see fast_trunk.trunk_features_eval."""
         return fast_trunk.score_eval(self.trunk(style), self.head(style),
                                      scene_img, mask_imgs, self.cfg.num_out, backend)
 
@@ -121,15 +135,22 @@ class AffordanceNet(nn.Module):
         Flax `model.apply(..., train=False, method=AffordanceNet.score)`
         (affordance.py:132-165) through DenseNetTrunk.forward and
         AffordanceHead.forward. (B, S, S, 3), (B, M, S, S, 3) -> (B, M,
-        num_out) f32."""
-        B, M = mask_imgs.shape[:2]
+        num_out) f32; (B, R, S, S, 3) scenes -> (B, M, R, num_out), as
+        score_eval."""
+        scenes = scene_img if scene_img.dim() == 5 else scene_img[:, None]
+        B, R = scenes.shape[:2]
+        M = mask_imgs.shape[1]
         mask_flat = mask_imgs.reshape((B * M,) + mask_imgs.shape[2:])
-        feats = self.trunk(style)(torch.cat([scene_img, mask_flat]))
-        scene_feat, mask_feat = feats[:B], feats[B:]
-        h, w, c = scene_feat.shape[1:]
-        scene_rep = scene_feat[:, None].expand(B, M, h, w, c).reshape(B * M, h, w, c)
-        out = self.head(style)(torch.cat([scene_rep, mask_feat], dim=-1))
-        return out.reshape(B, M, -1)
+        feats = self.trunk(style)(torch.cat([scenes.flatten(0, 1), mask_flat]))
+        h, w, c = feats.shape[1:]
+        scene_feat = feats[:B * R].reshape(B, R, h, w, c)
+        mask_feat = feats[B * R:]
+        outs = []
+        for r in range(R):
+            scene_rep = scene_feat[:, r, None].expand(B, M, h, w, c).reshape(B * M, h, w, c)
+            out = self.head(style)(torch.cat([scene_rep, mask_feat], dim=-1))
+            outs.append(out.reshape(B, M, -1))
+        return torch.stack(outs, dim=2) if scene_img.dim() == 5 else outs[0]
 
     def score_train(self, scene_img, mask_img, style: int, conv2: str = "conv"):
         """Train-mode scores of n scenes with one exec mask each, per-image
@@ -142,6 +163,48 @@ class AffordanceNet(nn.Module):
 def init_params(model: AffordanceNet, generator: torch.Generator) -> None:
     """Seeded He init of every trunk and head (PARITY dev 4)."""
     he_init_(model, generator)
+
+
+def rotate_image_nearest(img: torch.Tensor, theta) -> torch.Tensor:
+    """Rotate (..., S, S, C) images about their centers by theta, one angle
+    per image (shape img.shape[:-3], or a scalar), nearest sampling, zero
+    outside (affordance.py:226-243).
+
+    The sample coordinates are float32 as XLA computes them in the JAX
+    package's compiled programs, so round() picks the same source pixel
+    where a coordinate lies on a half: sin and cos of the float32 angle
+    rounded once to float32, and each coordinate as one fused multiply-add,
+    xs = fma(x - c, cos, (y - c) sin) + c (emulated in float64)."""
+    S = img.shape[-3]
+    lead = img.shape[:-3]
+    c = (S - 1) / 2.0
+    theta = torch.as_tensor(theta, dtype=torch.float32, device=img.device)
+    theta = theta.expand(lead).reshape(-1, 1, 1).double()
+    cos, sin = torch.cos(theta).float(), torch.sin(theta).float()
+    d = torch.arange(S, device=img.device, dtype=torch.float32) - c
+    dx, dy = d[None, None, :], d[None, :, None]
+
+    def fma(a, b, addend):
+        return (a.double() * b.double() + addend.double()).float()
+
+    xs = fma(dx, cos, dy * sin) + c                      # (n, S, S)
+    ys = fma(-dx, sin, dy * cos) + c
+    xi = torch.round(xs).to(torch.int64).clamp(0, S - 1)
+    yi = torch.round(ys).to(torch.int64).clamp(0, S - 1)
+    valid = (xs >= 0) & (xs <= S - 1) & (ys >= 0) & (ys <= S - 1)
+    flat = img.reshape(-1, S * S, img.shape[-1])
+    idx = (yi * S + xi).reshape(flat.shape[0], S * S, 1).expand(-1, -1, flat.shape[-1])
+    out = torch.gather(flat, 1, idx).reshape(img.shape)
+    return torch.where(valid.reshape(lead + (S, S, 1)), out, torch.zeros_like(out))
+
+
+def rotation_angles(rot_idx: torch.Tensor, num_rotations: int) -> torch.Tensor:
+    """float32 angles idx * 2 pi / R of rotation indices, computed as the
+    JAX package's labels do (trainer.py:597): the index and 2 pi / R
+    rounded to float32 first, then one float32 product."""
+    step = torch.tensor(2.0 * math.pi / num_rotations, dtype=torch.float32,
+                        device=rot_idx.device)
+    return rot_idx.to(torch.float32) * step
 
 
 def preprocess_depth(depth_hm: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

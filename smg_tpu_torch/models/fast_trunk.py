@@ -280,19 +280,42 @@ def head_eval(head, x: torch.Tensor, num_out: int) -> torch.Tensor:
     return h.reshape(x.shape[0], -1).float() @ k1.to(dt).float()
 
 
+def trunk_input(scene_img: torch.Tensor, mask_imgs: torch.Tensor):
+    """One trunk batch of the two streams: (x, B, R) with x the B * R scene
+    images, then the B * M masks. Scenes (B, S, S, 3) are R = 1; (B, R, S,
+    S, 3) are R rotations of each scene, which share the mask streams."""
+    scenes = scene_img if scene_img.dim() == 5 else scene_img[:, None]
+    B, R = scenes.shape[:2]
+    M = mask_imgs.shape[1]
+    x = torch.cat([scenes.reshape((B * R,) + scenes.shape[2:]),
+                   mask_imgs.reshape((B * M,) + mask_imgs.shape[2:])], 0)
+    return x, B, R
+
+
+def pair_features(feats: torch.Tensor, B: int, R: int) -> torch.Tensor:
+    """Trunk features of a trunk_input batch -> the head's input (B * M *
+    R, h, w, 2C): each object slot's mask features beside each rotation's
+    scene features, scene first (affordance.py:150-163), ordered (scene,
+    slot, rotation)."""
+    h, w, c = feats.shape[1:]
+    scene = feats[:B * R].reshape(B, 1, R, h, w, c)
+    mask = feats[B * R:].reshape(B, -1, 1, h, w, c)
+    M = mask.shape[1]
+    both = torch.cat([scene.expand(B, M, R, h, w, c), mask.expand(B, M, R, h, w, c)], -1)
+    return both.reshape(B * M * R, h, w, 2 * c)
+
+
 def score_eval(trunk, head, scene_img: torch.Tensor, mask_imgs: torch.Tensor,
                num_out: int, backend: str = "xla_fl") -> torch.Tensor:
     """Eval AffordanceNet.score (fast_trunk.py:986-1014): one trunk call
     over the scene + masked streams, scene features broadcast across the
-    M object slots, head on the concatenated features. -> (B, M, num_out)."""
-    B, M = mask_imgs.shape[:2]
-    mask_flat = mask_imgs.reshape((B * M,) + mask_imgs.shape[2:])
-    feats = trunk_features_eval(trunk, torch.cat([scene_img, mask_flat], 0), backend)
-    scene_feat, mask_feat = feats[:B], feats[B:]
-    h, w, c = scene_feat.shape[1:]
-    scene_rep = scene_feat[:, None].expand(B, M, h, w, c).reshape(B * M, h, w, c)
-    both = torch.cat([scene_rep, mask_feat], dim=-1)
-    return head_eval(head, both, num_out).reshape(B, M, num_out)
+    M object slots, head on the concatenated features. Scenes (B, S, S, 3)
+    -> (B, M, num_out); R rotations of each scene (B, R, S, S, 3) -> (B, M,
+    R, num_out), each mask stream computed once for all R."""
+    x, B, R = trunk_input(scene_img, mask_imgs)
+    out = head_eval(head, pair_features(trunk_features_eval(trunk, x, backend), B, R),
+                    num_out).reshape(B, -1, R, num_out)
+    return out if scene_img.dim() == 5 else out[:, :, 0]
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,9 @@ the CPU, where torch.optim.Adam keeps them).
 - `load_pretrained`: a cli.pretrain_trunks checkpoint (a
   ReconstructionModel's save_params file) into the three trunks of the
   online net and then the whole online net into the target, as
-  `--pretrained_trunks` does (main.py:204-228); Adam's state stays fresh.
+  `--pretrained_trunks` does (main.py:204-228). It copies into the
+  parameters in place, so the optimizer's state (keyed by parameter, as
+  restored by a resume before it) stays.
 """
 
 from __future__ import annotations
@@ -117,7 +119,8 @@ def load_snapshot(trainer: Trainer, path: str) -> None:
 
 
 def load_pretrained(trainer: Trainer, path: str) -> None:
-    """A pretrained trunk into all three trunks of both nets."""
+    """A pretrained trunk into all three trunks of both nets, in place
+    (load_state_dict copies into the existing tensors)."""
     from smg_tpu_torch.train.pretrain import load_pretrained_trunks
 
     load_pretrained_trunks(trainer.model, load_params(path))

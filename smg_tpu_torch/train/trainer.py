@@ -1,23 +1,32 @@
 """The multistage trainer: batched scoring, DQN labels, the update
 (port of smg_tpu/train/trainer.py).
 
-- `score_scene_batch`: the online net's eval scores (trainer.py:282-384),
-  including the ETS pair branch. `scene_chunk` bounds memory only: every
-  scoring unit of a chunk of scenes goes into one trunk call per style
-  (eval BatchNorm makes the per-image math that of the JAX package's
-  batch-1 units).
+- `score_scene_batch`: the online net's eval scores (trainer.py:282-384)
+  at ModelConfig.num_rotations R rotations of the scene stream (rotation
+  0 the unrotated image), including the ETS pair branch, which stays at
+  rotation 0. `scene_chunk` bounds memory only: every scoring unit of a
+  chunk of scenes goes into one trunk call per style, the R rotated scene
+  images beside the masks, each mask once (eval BatchNorm makes the
+  per-image math that of the JAX package's batch-1 units).
 - `dqn_labels` (trainer.py:411-474): r + gamma Q_target(s', a*_online) with
   the future term zeroed on failure and on a cleared table; the target net
-  scores (scene, exec mask) pairs grouped by style (`_eval_styled`).
+  scores (scene, exec mask) pairs grouped by style (`_eval_styled`), the
+  scene stream rotated by the exploit action's rotation index (for ETS
+  the grasp member's, trainer.py:449-456, though ETS scores at rotation
+  0).
 - `reactive_labels` (trainer.py:390-400).
-- `update` (trainer.py:640-761): each scene's scene and mask streams are
+- `update` (trainer.py:640-761), unrotated at any R as in the JAX
+  package (trainer.py:659-669): each scene's scene and mask streams are
   separate train-mode passes with their own BatchNorm statistics; the
   scenes of one style go through one trunk call with per-image moments
   (the JAX package's style-grouped and all-styles-then-select forms are
   pinned equal, tests/test_train.py::TestChunkedDispatch). Loss summed over
   valid scenes / max(n_valid, 1); Adam; the running statistics of the
   executed style's trunk and head take each scene's update and are then
-  averaged over all B scenes, invalid ones included.
+  averaged over all B scenes, invalid ones included. The ETS style's head
+  is `AffordanceNet.head(2)`: the suction head while tied_ets_head, else
+  gs_head, which then takes style 2's gradient and statistics
+  (trainer.py:256-277).
 
 With ModelConfig.trunk = "tiny", eval scoring goes through the module
 forward (AffordanceNet.score) and the update through fast_trunk's tiny
@@ -37,6 +46,7 @@ dtype (bf16 in production).
 from __future__ import annotations
 
 import copy
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -93,8 +103,8 @@ class Experience(_Batched):
 
 @dataclass
 class SceneScores(_Batched):
-    gra_conf: torch.Tensor   # (B, N, 1): one rotation
-    suc_conf: torch.Tensor   # (B, N, 1)
+    gra_conf: torch.Tensor   # (B, N, R): R = ModelConfig.num_rotations
+    suc_conf: torch.Tensor   # (B, N, R)
     gs_conf: torch.Tensor    # (B, N, N)
 
 
@@ -148,19 +158,31 @@ class Trainer:
             return torch.softmax(out, dim=-1)[..., :1]
         return out
 
+    def _rotated_scenes(self, scene_img: torch.Tensor) -> torch.Tensor:
+        """(C, S, S, 3) -> (C, R, S, S, 3): rotation r turns each scene by
+        r 2 pi / R, its angle rounded once to float32 (trainer.py:305-310);
+        rotation 0 is the image itself."""
+        R = self.cfg.model.num_rotations
+        if R == 1:
+            return scene_img[:, None]
+        theta = torch.tensor([r * (2.0 * math.pi / R) for r in range(R)],
+                             dtype=torch.float32, device=scene_img.device)
+        return aff.rotate_image_nearest(
+            scene_img[:, None].expand((-1, R) + scene_img.shape[1:]), theta)
+
     def score_scene(self, scene_depth, masks, valid) -> SceneScores:
         """Score scenes: (C, 224, 224) masked depth, (C, N, 224, 224)
-        masks, (C, N) valid (trainer.py:282-358), at the one rotation of
-        the reference (gnum/snum_rotations = 1)."""
+        masks, (C, N) valid (trainer.py:282-358): grasp and suction at
+        each of the R rotations, ETS pairs at rotation 0 (:325)."""
         cfg = self.cfg
         model = self.model
         C = scene_depth.shape[0]
         scene_img = self._prep(scene_depth)                     # (C, S, S, 3)
+        scene_rot = self._rotated_scenes(scene_img)             # (C, R, S, S, 3)
         obj_ins = self._prep(scene_depth[:, None] * masks)      # (C, N, S, S, 3)
-        gra_conf = self._postprocess(self._score_eval(model, scene_img, obj_ins,
-                                                      STYLE_GRASP))
-        suc_conf = self._postprocess(self._score_eval(model, scene_img, obj_ins,
-                                                      STYLE_SUCTION))
+        gra_conf, suc_conf = (
+            self._postprocess(self._score_eval(model, scene_rot, obj_ins, s))[..., 0]
+            for s in (STYLE_GRASP, STYLE_SUCTION))              # (C, N, R)
         gs_conf = torch.full((C, N_SLOTS, N_SLOTS), -100.0,
                              device=scene_depth.device)
         if cfg.is_ets:
@@ -226,7 +248,14 @@ class Trainer:
         style = torch.where(exploit == ACTION_GRASP, STYLE_GRASP,
                             torch.where(exploit == ACTION_SUCTION, STYLE_SUCTION,
                                         STYLE_ETS))
-        future = self._eval_styled(self.target, next_scene_depths, exec_mask, style)
+        # The exploit action's rotation (specific_rotation of the reference,
+        # trainer.py:261-269); for ETS the grasp member's.
+        rot_idx = torch.where(
+            exploit == ACTION_GRASP, next_choice.bestg_id[:, 1],
+            torch.where(exploit == ACTION_SUCTION, next_choice.bests_id[:, 1],
+                        next_choice.bestgs_g_id[:, 1]))
+        future = self._eval_styled(self.target, next_scene_depths, exec_mask, style,
+                                   rot_idx)
         o = prev_outcome
         any_succ = (o.suction_success > 0) | (o.grasp_success > 0) | (o.gs_success > 0)
         n = prev_objects_number
@@ -246,14 +275,21 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_styled(self, net: AffordanceNet, scene_depths, exec_masks,
-                     styles) -> torch.Tensor:
+                     styles, rotations=None) -> torch.Tensor:
         """Eval Q / confidence of (scene, exec-mask) pairs whose style varies
         per scene (trainer.py:581-634): one eval call per style present, M = 1
-        mask per scene. (B, 224, 224) x2 + (B,) -> (B,)."""
+        mask per scene. (B, 224, 224) x2 + (B,) -> (B,). With R > 1 each
+        scene stream turns by its `rotations` index (B,) times 2 pi / R
+        (None: rotation 0)."""
+        R = self.cfg.model.num_rotations
         out = torch.zeros(styles.shape[0], device=scene_depths.device)
         for s, idx in self._style_groups(styles):
             sd = scene_depths[idx]
-            o = self._score_eval(net, self._prep(sd), self._prep(sd * exec_masks[idx])[:, None], s)
+            scene_img = self._prep(sd)
+            if R > 1:
+                rot = (torch.zeros_like(idx) if rotations is None else rotations[idx])
+                scene_img = aff.rotate_image_nearest(scene_img, aff.rotation_angles(rot, R))
+            o = self._score_eval(net, scene_img, self._prep(sd * exec_masks[idx])[:, None], s)
             out[idx] = self._postprocess(o[:, 0])[:, 0]
         return out
 
@@ -289,8 +325,9 @@ class Trainer:
         loss = loss_b.sum() / n_valid.clamp(min=1)
         loss.backward()
         # optax steps every parameter (moment decay, step count); torch's
-        # Adam skips one whose grad is None (unused styles, gs_head, a batch
-        # with no valid scene), so give those a zero gradient.
+        # Adam skips one whose grad is None (unused styles, a tied gs_head,
+        # a batch with no valid scene), so give those a zero gradient. It
+        # also keeps the reducer's flat buffer the same on every rank.
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

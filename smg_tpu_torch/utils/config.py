@@ -16,6 +16,10 @@ small trunk; `--segmentation learned` reads `--segmenter_checkpoint`;
 `--pretrained_trunks` takes a cli.pretrain_trunks checkpoint;
 `--data_parallel N` shards the scenes over N processes launched by
 torchrun (one card each).
+
+ModelConfig.num_rotations and tied_ets_head have no flag, as in the JAX
+parser: set them with dataclasses.replace on `train.model`;
+info/config.json records both.
 """
 
 from __future__ import annotations

@@ -30,6 +30,7 @@ the CPU.
   the sharded step itself), and --data_parallel outside torchrun stops.
 """
 
+import copy
 import dataclasses
 import importlib.util
 import os
@@ -79,9 +80,7 @@ REFERENCE_CMDS = [
 ]
 # info/config.json fields that only one package has.
 JAX_ONLY = {
-    ("train", "model", "num_rotations"),
-    ("train", "model", "tied_ets_head"), ("train", "fast_eval"),
-    ("train", "fast_train"), ("train", "unroll_styles"),
+    ("train", "fast_eval"), ("train", "fast_train"), ("train", "unroll_styles"),
 }
 PORT_ONLY = {("train", "model", "block_config"), ("device",)}
 
@@ -405,6 +404,65 @@ def test_pretrained_trunks_run(tmp_path, capsys):
     out = cli.run(cfg)
     assert out["iterations"] == 1
     assert f"pretrained trunks loaded from: {ckpt}" in capsys.readouterr().out
+
+
+def test_pretrained_trunks_resume_order(tmp_path, monkeypatch, capsys):
+    """--continue_logging with --pretrained_trunks takes the JAX package's
+    order (smg_tpu/cli/main.py:174-228): the checkpoint is restored first,
+    then the pretrained trunk goes into the three trunks of the online net
+    and the target becomes its copy. So at the resumed run's first step the
+    trunks of both nets are the pretrained one, the heads the checkpoint's
+    online heads, the iteration the checkpoint's, and Adam's state the
+    checkpoint's (its moments keyed by the same parameters)."""
+    from smg_tpu_torch.cli import pretrain_trunks
+
+    trunk_ckpt = str(tmp_path / "trunk.pt")
+    pretrain_trunks.train(2, 2, trunk_ckpt, trunk="tiny", device="cpu")
+    run = str(tmp_path / "run")
+    flags = ["--cpu", "--method", "reinforcement", "--is_pe", "--is_oo", "--batch_size", "2",
+             "--trunk", "tiny", "--imagery_every", "0", "--logging_directory", run]
+    cli.run(_small(cfg_mod.parse_args(flags + ["--max_iterations", "2"])))
+    (run_dir,) = Path(run).iterdir()
+    saved = torch.load(run_dir / "models" / "ckpt" / "2.pt", weights_only=True)
+    pretrained = {k[len("trunk."):]: v for k, v in checkpoints.load_params(trunk_ckpt).items()
+                  if k.startswith("trunk.")}
+
+    seen = {}
+    step = cli.train_step
+
+    def first_step(trainer, loop_cfg, state):
+        if not seen:
+            seen.update(iteration=state.trainer.iteration,
+                        model=copy_state(trainer.model), target=copy_state(trainer.target),
+                        names=[n for n, _ in trainer.model.named_parameters()],
+                        opt=copy.deepcopy(trainer.opt.state_dict()))
+        return step(trainer, loop_cfg, state)
+
+    copy_state = lambda m: {k: v.clone() for k, v in m.state_dict().items()}  # noqa: E731
+    monkeypatch.setattr(cli, "train_step", first_step)
+    out = cli.run(_small(cfg_mod.parse_args(
+        flags[:-1] + [str(run_dir), "--continue_logging", "--pretrained_trunks", trunk_ckpt,
+                      "--max_iterations", "3"])))
+    text = capsys.readouterr().out
+    assert "Resumed trainer state from checkpoint step 2" in text
+    assert f"pretrained trunks loaded from: {trunk_ckpt}" in text
+    assert out["iterations"] == 3 and seen["iteration"] == 2 == saved["iteration"]
+    for net in ("model", "target"):
+        for name, v in seen[net].items():
+            part, key = name.split(".", 1)
+            if part.endswith("_trunk"):
+                assert torch.equal(v, pretrained[key]), (net, name)
+            else:
+                assert torch.equal(v, saved["model"][name]), (net, name)
+    assert any(not torch.equal(saved["model"][k], v) for k, v in seen["model"].items()
+               if k.split(".", 1)[0].endswith("_trunk"))
+    want_opt = saved["optimizer"]["state"]
+    assert seen["opt"]["state"].keys() == want_opt.keys()
+    for i, name in enumerate(seen["names"]):
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(seen["opt"]["state"][i][k], want_opt[i][k]), (name, k)
+    assert any(want_opt[i]["exp_avg"].abs().sum() > 0 for i, name in enumerate(seen["names"])
+               if "_head." in name)
 
 
 def test_data_parallel_run(tmp_path):

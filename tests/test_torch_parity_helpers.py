@@ -250,7 +250,7 @@ def shallow_train_patch(monkeypatch):
 
 
 def make_trainers(method="reinforcement", conv2="pk", jax_conv2="vjp", B=4,
-                  unroll="auto"):
+                  unroll="auto", is_ets=False, **model_kw):
     """(JAX trainer, params, stats, port trainer) with the same weights, at
     input 224 in float32 with shallow trunks (call shallow_train_patch
     first). The JAX trainer takes the fast_train forward with jax_conv2
@@ -258,23 +258,26 @@ def make_trainers(method="reinforcement", conv2="pk", jax_conv2="vjp", B=4,
     in interpret mode). unroll="off" takes the JAX trainer's style-grouped
     dispatch, which the JAX package pins equal to its CPU default of all
     three styles per scene (tests/test_train.py::TestChunkedDispatch): one
-    styled trunk in the compiled program instead of three."""
+    styled trunk in the compiled program instead of three. model_kw
+    (num_rotations, tied_ets_head) go to both ModelConfigs, is_ets to both
+    TrainConfigs."""
     from smg_tpu.models import affordance as jaff
     from smg_tpu.train import trainer as jtr
     from smg_tpu_torch.models.affordance import ModelConfig
     from smg_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    jm = jaff.ModelConfig(method=method, input_size=TRAIN_S, dtype="float32")
+    jm = jaff.ModelConfig(method=method, input_size=TRAIN_S, dtype="float32", **model_kw)
     jt = jtr.Trainer(jtr.TrainConfig(model=jm, method=method, scene_chunk=B,
                                      fast_train="on", fast_train_conv2=jax_conv2,
-                                     unroll_styles=unroll))
+                                     unroll_styles=unroll, is_ets=is_ets))
     variables = init_flax_all(jt.model, 128, jm.feature_hw, 0)
     params = variables["params"]
     stats = rand_stats(variables["batch_stats"], 0)
     pt = Trainer(TrainConfig(
         model=ModelConfig(method=method, input_size=TRAIN_S, dtype="float32",
-                          block_config=TRAIN_SHALLOW),
-        method=method, scene_chunk=B, fast_train_conv2=conv2), device="cpu")
+                          block_config=TRAIN_SHALLOW, **model_kw),
+        method=method, scene_chunk=B, fast_train_conv2=conv2, is_ets=is_ets),
+        device="cpu")
     reset_port(pt, params, stats)
     return jt, params, stats, pt
 

@@ -38,7 +38,7 @@ from test_torch_parity_helpers import jax_scenes, to_numpy_tree, torch_tree_to_n
 N = 12
 
 
-def _scores(seed, B=16):
+def _scores(seed, B=16, R=1):
     rng = np.random.RandomState(seed)
     valid = rng.rand(B, N) < 0.5
     valid[0] = False
@@ -46,8 +46,8 @@ def _scores(seed, B=16):
     valid[1, 3] = True            # one object
     valid[2] = False
     valid[2, [4, 9]] = True       # two objects
-    gra = np.where(valid[..., None], rng.randn(B, N, 1), -1e9)
-    suc = np.where(valid[..., None], rng.randn(B, N, 1), -1e9)
+    gra = np.where(valid[..., None], rng.randn(B, N, R), -1e9)
+    suc = np.where(valid[..., None], rng.randn(B, N, R), -1e9)
     gs = np.full((B, N, N), -100.0)
     iu = np.triu_indices(N, 1)
     gs[:, iu[0], iu[1]] = rng.randn(B, len(iu[0])) * 1.5
@@ -56,11 +56,12 @@ def _scores(seed, B=16):
     return f(gra), f(suc), f(gs), valid, centers
 
 
+@pytest.mark.parametrize("R", [1, 4])
 @pytest.mark.parametrize("is_ets,method", [(False, "reinforcement"),
                                            (True, "reinforcement"),
                                            (True, "reactive")])
-def test_select_action(is_ets, method):
-    gra, suc, gs, valid, centers = _scores(int(is_ets) + 2 * (method == "reactive"))
+def test_select_action(is_ets, method, R):
+    gra, suc, gs, valid, centers = _scores(int(is_ets) + 2 * (method == "reactive"), R=R)
     B = gra.shape[0]
     want = to_numpy_tree(jax.vmap(lambda k, g, s, p, v, c: jarb.select_action(
         k, g, s, p, v, c, method=method, is_ets=is_ets, is_testing=True))(
@@ -75,6 +76,9 @@ def test_select_action(is_ets, method):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     if is_ets:
         assert (want["action"] == arb.ACTION_ETS).any()
+    if R > 1:   # the rotation ids reach best_pix
+        assert (want["best_pix"][:, [0, 3]] > 0).any()
+        assert (want["best_pix"][:, [0, 3]] < R).all()
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,8 @@ A shallow DenseNet (block_config (2, 2, 2, 2)) at input 224 on both sides
 statistics go through the bridge.
 
 - Trainer.update against JAX's with fast_train="on": B = 4 with all three
-  styles and one invalid scene. The JAX side runs its style-grouped
+  styles and one invalid scene, with the ETS head tied (style 2 trains the
+  suction head) and untied (it trains gs_head and its statistics). The JAX side runs its style-grouped
   dispatch (unroll_styles="off", see make_trainers) and
   fast_train_conv2="vjp", which the JAX package pins equal to "pk"
   (tests/test_dense_layer_train_pallas.py::test_bwd_matches_jnp_vjp) and
@@ -97,18 +98,28 @@ def _jax_update(jt, params, stats, exp, labels, **cfg):
             flat_tree(to_numpy_tree(jnew.batch_stats)))
 
 
-def _part_gaps(got: dict, want: dict) -> dict:
-    """Relative L2 of each network part's whole gradient (gs_head: none)."""
+def _part_gaps(got: dict, want: dict, parts=bridge.AFFORDANCE_PARTS[:5]) -> dict:
+    """Relative L2 of each network part's whole gradient (a tied gs_head: none)."""
     out = {}
-    for part in bridge.AFFORDANCE_PARTS[:5]:
+    for part in parts:
         keys = sorted(k for k in want if k[0] == part)
         cat = lambda d: np.concatenate([d[k].ravel() for k in keys])  # noqa: E731
         out[part] = rel_l2(cat(got), cat(want), 1e-6)
     return out
 
 
-def test_update_matches_jax(dqn):
+@pytest.mark.parametrize("tied", [True, False])
+def test_update_matches_jax(dqn, tied):
     jt, params, stats, pt = dqn
+    if not tied:
+        # The untied ETS head: style 2 trains gs_head and its statistics
+        # (trainer.py:188-206, :256-277).
+        jt = jtr.Trainer(dataclasses.replace(jt.cfg, model=dataclasses.replace(
+            jt.cfg.model, tied_ets_head=False)))
+        pt = type(pt)(dataclasses.replace(pt.cfg, model=dataclasses.replace(
+            pt.cfg.model, tied_ets_head=False)), device="cpu")
+        reset_port(pt, params, stats)
+    parts = bridge.AFFORDANCE_PARTS[:5] if tied else bridge.AFFORDANCE_PARTS
     depth, mask = train_images(2, B)
     style = np.array([0, 1, 2, 1], np.int32)
     valid = np.array([True, True, True, False])
@@ -129,7 +140,7 @@ def test_update_matches_jax(dqn):
     assert abs(float(ploss) - jloss) <= 1e-5 * abs(jloss)
     got = port_grads(pt.model)
     got_stats = flat_tree(bridge.dump_affordance_params(pt.model)[1])
-    gaps = {name: (max(leaf_gaps(g, want).values()), _part_gaps(g, want),
+    gaps = {name: (max(leaf_gaps(g, want).values()), _part_gaps(g, want, parts),
                    max(stats_gaps(st, want_stats).values()))
             for name, g, st in (("port", got, got_stats), ("JAX Flax", flax_g, flax_stats))}
     for name, (leaf, parts, st) in gaps.items():
@@ -141,8 +152,14 @@ def test_update_matches_jax(dqn):
     for part, err in gaps["port"][1].items():
         assert err < part_tol, (part, err)
     assert_stats(got_stats, want_stats, tol=witness_tol(1e-5, stats_w))
-    # The tied head: gs_head neither learns nor moves its statistics.
-    assert not any(np.abs(v).any() for k, v in got.items() if k[0] == "gs_head")
+    # The tied head: gs_head neither learns nor moves its statistics; the
+    # untied one does both, and then the suction head learns from style 1 only.
+    gs_grad = any(np.abs(v).any() for k, v in got.items() if k[0] == "gs_head")
+    assert gs_grad == (not tied)
+    gs_stats = [k for k in got_stats if k[0] == "gs_head"]
+    old_stats = flat_tree(to_numpy_tree(stats))
+    moved = any(not np.array_equal(got_stats[k], old_stats[k]) for k in gs_stats)
+    assert moved == (not tied)
 
 
 def test_adam_matches_optax(dqn):
