@@ -30,7 +30,7 @@
    composed over each whole dense block against its plain walk; and K3
    and K6 at the largest batch their wrappers take (32-bit indices).
 4. The act path: make_prod_trainer(32) + make_prod_loop_cfg(32) with
-   is_testing=True, init_loop with the seeded He init, then act steps,
+   is_testing=True, init_loop with the seeded init, then act steps,
    with per-phase times, the success rate and each kernel's launch count;
    plus one scene's trunk features against the plain bf16 path on the CPU.
 5. The training path: make_prod_trainer(32, fast_train_conv2="pk") +
@@ -38,7 +38,7 @@
    (labels, update through K6, Adam) with per-phase times, the loss and
    state checks and each kernel's launch count; then one update with
    'conv' (autograd) against 'pk' on the same experience and weights
-   (times, losses), and on 8 of its scenes the update's gradients through
+   (times, losses), and on the same batch the update's gradients through
    K6 against K6's plain versions on the CPU and against a float32 update.
 6. The eval backends' path: the decision-parity entry point
    (smg_tpu_torch/cli/decision_parity.py) on 8 rendered scenes (104 images
@@ -136,8 +136,12 @@ TOL_BF16 = 2.0 ** -6  # of the largest |value|: a few bf16 steps
 # Gradients: bf16 operands with f32 sums in another order than the plain
 # version's, through two BatchNorm backwards: relative L2.
 TOL_GRAD = 1e-2
-# The update's gradients at full depth on UPDATE_SCENES scenes, relative L2
-# per network part. At random He-init weights the bf16 update's trunk
+# The update's gradients at full depth on the whole b32 batch, relative L2
+# per network part. A head's gradient comes from its style's scenes alone,
+# and on a few scenes two bf16 roundings of it part like noise: on 8 scenes
+# of a warm batch grasp_head's 'pk' stood 2.4 x 'conv' from float32 (one
+# style-0 scene), on 4 style-1 scenes suction_head's 2.4 x, where K6 on
+# the card stood as far from its own plain version. At random weights the bf16 update's trunk
 # gradients are fixed only to about half their norm: any change of
 # rounding (K6 on the card against its plain versions on the CPU, at the
 # same rounding points, read 0.48-0.53) flips bf16 ReLUs and near-constant
@@ -146,7 +150,6 @@ TOL_GRAD = 1e-2
 # no farther from it than TRUTH_RATIO times bf16 'conv' is (read: 0.98-1.07
 # times). K6 composed over whole blocks is held tightly by
 # phase_dense_block_train, from one forward.
-UPDATE_SCENES = 8
 TRUTH_RATIO = 1.5
 DP_SCENES = 8         # the decision-parity path: 8 x (1 + 12) = STREAMS images
 SIZES = (224, 640)    # the trunk's input sizes (ModelConfig.input_size)
@@ -1362,14 +1365,15 @@ def _update_grads(trainer, snap, exp, labels, iteration, mode):
     return float(loss), _part_grads(trainer.model)
 
 
-def compare_update_modes(trainer, state):
-    """The update's gradients through K6 at full depth, and its time.
+def compare_update_modes(trainer, state, weights: str = ""):
+    """The update's gradients through K6 at full depth, and its time; the
+    printed lines name `weights` where given.
 
     1. One b32 update with 'conv' (autograd of the conv form) against 'pk'
        (K6) on the same experience and weights, in turns pk, conv, conv, pk:
        both times; the losses agree to 5% (bf16 compute, PARITY dev 12), and
        two 'pk' runs give the same loss.
-    2. On the first UPDATE_SCENES scenes, the bf16 'pk' and 'conv'
+    2. On the same batch, the bf16 'pk' and 'conv'
        gradients against the float32 'conv' update on the card: 'pk' is no
        farther from it than TRUTH_RATIO times 'conv' is, per network part.
        A part with no gradient in one run has none in the others. Reported:
@@ -1396,7 +1400,8 @@ def compare_update_modes(trainer, state):
         res[mode].append((time.perf_counter() - t0, float(loss)))
     loss_pk, loss_conv = res["pk"][0][1], res["conv"][0][1]
     diff = abs(loss_pk - loss_conv) / max(abs(loss_conv), 1e-6)
-    print(f"update at b32 ({int(exp.valid.sum())} valid scenes, styles "
+    at = f" at {weights}" if weights else ""
+    print(f"update at b32{at} ({int(exp.valid.sum())} valid scenes, styles "
           f"{torch.bincount(exp.style[exp.valid].long(), minlength=3).tolist()}): "
           f"'pk' (K6) {', '.join(f'{t:.3f}' for t, _ in res['pk'])} s, 'conv' autograd "
           f"{', '.join(f'{t:.3f}' for t, _ in res['conv'])} s; loss {loss_pk:.6f} vs "
@@ -1405,23 +1410,20 @@ def compare_update_modes(trainer, state):
     check(res["pk"][0][1] == res["pk"][1][1], "K6 update loss differs between repeats")
     check(diff <= 0.05, f"'pk' and 'conv' losses differ by {diff:.4f}")
 
-    sub = exp.map(lambda t: t[:UPDATE_SCENES])
-    sub_labels = labels[:UPDATE_SCENES]
-    check(bool(sub.valid.any()), f"no valid scene among the first {UPDATE_SCENES}")
-    runs = {"pk": _update_grads(trainer, model_snap, sub, sub_labels, it, "pk"),
-            "conv": _update_grads(trainer, model_snap, sub, sub_labels, it, "conv")}
+    runs = {"pk": _update_grads(trainer, model_snap, exp, labels, it, "pk"),
+            "conv": _update_grads(trainer, model_snap, exp, labels, it, "conv")}
     trainer.cfg = cfg0
     trainer.model.load_state_dict(model_snap)
     trainer.opt.load_state_dict(opt_snap)
     cpu = Trainer(cfg0, device="cpu")
     t0 = time.perf_counter()
-    runs["pk plain"] = _update_grads(cpu, model_snap, sub.map(lambda t: t.cpu()),
-                                     sub_labels.cpu(), it, "pk")
+    runs["pk plain"] = _update_grads(cpu, model_snap, exp.map(lambda t: t.cpu()),
+                                     labels.cpu(), it, "pk")
     cpu_s = time.perf_counter() - t0
     del cpu
     f32 = Trainer(dataclasses.replace(cfg0, model=dataclasses.replace(
         cfg0.model, dtype="float32")), device=trainer.device)
-    runs["f32 conv"] = _update_grads(f32, model_snap, sub, sub_labels, it, "conv")
+    runs["f32 conv"] = _update_grads(f32, model_snap, exp, labels, it, "conv")
     del f32
     truth = runs["f32 conv"][1]
     live = [k for k, g in truth.items() if float(g.norm()) > 0]
@@ -1435,8 +1437,8 @@ def compare_update_modes(trainer, state):
     to_f32 = {m: {k: _rel_l2(runs[m][1][k], truth[k]) for k in live} for m in ("pk", "conv")}
     pk_conv = {k: _rel_l2(runs["pk"][1][k], runs["conv"][1][k]) for k in live}
     fmt = lambda d: ", ".join(f"{k} {v:.4f}" for k, v in d.items())  # noqa: E731
-    print(f"update gradients on {UPDATE_SCENES} scenes (styles "
-          f"{torch.bincount(sub.style[sub.valid].long(), minlength=3).tolist()}), "
+    print(f"update gradients{at} on the batch (styles "
+          f"{torch.bincount(exp.style[exp.valid].long(), minlength=3).tolist()}), "
           f"relative L2 per part: K6 on the card vs the plain versions on the CPU "
           f"({cpu_s:.1f} s) (reported): {fmt(kp)}; bf16 'pk' vs f32: "
           f"{fmt(to_f32['pk'])}; bf16 'conv' vs f32: {fmt(to_f32['conv'])} (bound: 'pk' "
@@ -1445,7 +1447,7 @@ def compare_update_modes(trainer, state):
           f"'pk' gradients farther from float32 than 'conv': {to_f32}")
     return {"pk_s": [t for t, _ in res["pk"]], "conv_s": [t for t, _ in res["conv"]],
             "loss_pk": loss_pk, "loss_conv": loss_conv, "rel_diff": diff,
-            "subset_scenes": UPDATE_SCENES, "kernel_vs_plain_rel_l2": kp,
+            "kernel_vs_plain_rel_l2": kp,
             "to_f32_rel_l2": to_f32, "pk_vs_conv_rel_l2": pk_conv,
             "subset_losses": {k: v[0] for k, v in runs.items()}, "cpu_plain_s": cpu_s}
 
@@ -2036,16 +2038,19 @@ def drive_pretrain_path(dev, kernels):
     """python -m smg_tpu_torch.cli.pretrain_trunks (DenseNet-121, 224) for
     PRETRAIN_STEPS steps at b16 in a subprocess, its loss falling (the
     mean of the last 5 below the first 5's, tests/test_pretrain.py:39-62);
-    the checkpoint into a fresh trainer's six trunks (online and target),
-    equal; then cli.main with the held flags and --pretrained_trunks for
+    the checkpoint into a fresh b32 trainer's six trunks (online and
+    target), equal, and that trainer's update at the warm weights after
+    two training steps: compare_update_modes, 'pk' no farther from float32
+    than TRUTH_RATIO x 'conv' per part on the b32 batch, as on the
+    training path's random weights; then cli.main with the held flags and --pretrained_trunks for
     two training iterations: its target trunks equal the checkpoint's and
     its online trunks sit within one Adam step of them (the first update
     is on the blank previous step, a zero gradient)."""
     import tempfile
 
-    from smg_tpu_torch.train import checkpoints
+    from smg_tpu_torch.train import checkpoints, loop
     from smg_tpu_torch.train.pretrain import TRUNK_PARTS
-    from smg_tpu_torch.train.prod_config import make_prod_trainer
+    from smg_tpu_torch.train.prod_config import make_prod_loop_cfg, make_prod_trainer
 
     total = {name: 0 for name in launch_counters()}
     detail = {"step": phase_pretrain_step(dev)}
@@ -2071,15 +2076,20 @@ def drive_pretrain_path(dev, kernels):
 
         pre = {k[len("trunk."):]: v for k, v in checkpoints.load_params(ckpt).items()
                if k.startswith("trunk.")}
-        trainer = make_prod_trainer(B_MAIN, device=dev)
-        trainer.init_state(torch.Generator(device=dev).manual_seed(SEED))
+        trainer = make_prod_trainer(B_MAIN, device=dev, fast_train_conv2="pk")
+        cfg = make_prod_loop_cfg(B_MAIN, is_testing=False)
+        state = loop.init_loop(SEED + 1, trainer, cfg)
         checkpoints.load_pretrained(trainer, ckpt)
         for net in (trainer.model, trainer.target):
             for part in TRUNK_PARTS:
                 got = _trunk_state(net, part)
                 check(all(torch.equal(got[k], pre[k]) for k in pre),
                       f"load_pretrained: {part} differs from the checkpoint")
-        del trainer
+        for _ in range(2):
+            state, _ = loop.train_step(trainer, cfg, state)
+        detail["warm_update_modes"] = compare_update_modes(trainer, state, "warm weights")
+        del trainer, state
+        torch.cuda.empty_cache()
 
         run_out, counts, detail["warm_cli_seconds"] = run_cli(
             "smg_tpu_torch.cli.main",

@@ -3,33 +3,38 @@
 # PyTorch port, on one CUDA card: pretrain the trunk on masked-depth
 # reconstruction (1000 steps at b16), train eses_drl_lc at b32 from it
 # (--pretrained_trunks, the held flags of run_port_b32.sh), test on the
-# held-out catalog from the run's snapshot, and summarize with
-# scripts/analyze_results.py. The cold arm is run_port_b32.sh's run.
+# held-out catalog from the run's snapshot, summarize with
+# scripts/analyze_results.py, then run_port_checks.sh on the snapshot at
+# 224. The cold arm is run_port_b32.sh's run.
 #
-# Usage: bash run_port_warmstart.sh [OUT] [TRAIN_EP] [TEST_EP] [PRETRAIN_STEPS]
+# Usage: bash run_port_warmstart.sh [OUT] [TRAIN_EP] [TEST_EP] [PRETRAIN_STEPS] [SEED]
 #
-# The run trees go under logs/port_warmstart; OUT (default
-# logs/port_warmstart/summary) receives the stdout logs, each run's info/
-# and transitions/, and the summary (RESULTS.md). Every command runs even
-# if one before it failed; the script exits nonzero if any did.
+# SEED (default 0) goes to --seed of cli.pretrain_trunks and of cli.main
+# (training and testing). The run trees go under
+# logs/port_warmstart/seed<SEED>; OUT (default
+# logs/port_warmstart/seed<SEED>/summary) receives the stdout logs, each
+# run's info/ and transitions/, the summary (RESULTS.md) and the JSON lines
+# of run_port_checks.sh at 224 (CHECKS=0 skips them). Every command runs
+# even if one before it failed; the script exits nonzero if any did.
 set -u
 cd "$(dirname "$0")"
 
-OUT="${1:-logs/port_warmstart/summary}"
+SEED="${5:-0}"
+RUNS="logs/port_warmstart/seed$SEED"
+OUT="${1:-$RUNS/summary}"
 TRAIN_EP="${2:-800}"
 TEST_EP="${3:-300}"
 STEPS="${4:-1000}"
-RUNS=logs/port_warmstart
 PRE="$RUNS/trunk_pretrain.pt"
 FLAGS="--is_sim --method reinforcement --is_ets --is_pe --is_oo"
-COMMON="--batch_size 32 --imagery_every 0 --trunk densenet121 --input_size 224"
+COMMON="--batch_size 32 --imagery_every 0 --trunk densenet121 --input_size 224 --seed $SEED"
 mkdir -p "$OUT" "$RUNS/train" "$RUNS/test"
 rc=0
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
 
-echo "=== pretrain trunks ($STEPS steps, b16) ==="
+echo "=== pretrain trunks ($STEPS steps, b16, seed $SEED) ==="
 python3 -m smg_tpu_torch.cli.pretrain_trunks --steps "$STEPS" --batch_size 16 \
-  --out "$PRE" > "$OUT/pretrain.log" 2>&1 || rc=1
+  --seed "$SEED" --out "$PRE" > "$OUT/pretrain.log" 2>&1 || rc=1
 grep "^pretrain step" "$OUT/pretrain.log" | tail -3
 
 echo "=== train eses_drl_lc, warm (b32, $TRAIN_EP episodes) ==="
@@ -55,7 +60,10 @@ for r in "$run" "$test_run"; do
   cp -r "$r/info" "$r/transitions" "$dst/"
 done
 python3 scripts/analyze_results.py "$run" "$test_run" \
-  --labels port_eses_drl_lc_warm-train,port_eses_drl_lc_warm-test \
+  --labels port_eses_drl_lc_warm_s$SEED-train,port_eses_drl_lc_warm_s$SEED-test \
   --out "$OUT/RESULTS.md" > "$OUT/analyze.log" 2>&1 || rc=1
 cat "$OUT/analyze.log"
+if [ "${CHECKS:-1}" = 1 ]; then
+  bash run_port_checks.sh "$run/models/snapshot" "$OUT" 224 || rc=1
+fi
 exit $rc

@@ -26,11 +26,12 @@ Without --snapshot the weights are the test's discriminative construction
 (tests/test_decision_parity.py:147-160): Flax's default conv init (LeCun
 normal, variance 1 / fan_in) with every kernel scaled 1.5x, and BatchNorm
 statistics that keep the ReLU chain alive at depth
-(tests/test_fast_trunk.py:20-41), from a seeded torch.Generator. The
-port's init_params draws He normal (variance 2 / fan_in), so its kernels
-are scaled by 1.5 / sqrt(2). At plain init full-depth trunks map the
-objects to near-equal values and the check would be vacuous; at He x 1.5
-the values explode.
+(tests/test_fast_trunk.py:20-41), from a seeded torch.Generator: He
+normal (variance 2 / fan_in, untruncated) scaled by 1.5 / sqrt(2). At
+plain init full-depth trunks map the objects to near-equal values and the
+check would be vacuous; at He x 1.5 the values explode. These are the
+check's own weights, not init_params' (Flax's truncated LeCun normal):
+they stay what every recorded decision-parity reading was taken on.
 
 With --snapshot the weights are a trained run's models/snapshot
 (train/checkpoints.py::save_params) instead. A snapshot trained at input
@@ -62,7 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from smg_tpu_torch.envs import smg_env
-from smg_tpu_torch.models.affordance import (AffordanceNet, ModelConfig, init_params,
+from smg_tpu_torch.models.affordance import (AffordanceNet, ModelConfig,
                                              preprocess_depth)
 from smg_tpu_torch.models.densenet import BLOCK_CONFIG
 from smg_tpu_torch.models.fast_trunk import BACKENDS
@@ -125,7 +126,7 @@ def make_model(input_size: int, seed: int = 0, device="cuda",
                block_config=BLOCK_CONFIG, dtype: str = "bfloat16",
                snapshot: str = "") -> AffordanceNet:
     """The check's model: a trained snapshot's weights, or else conv
-    kernels 1.5 x LeCun normal (He init x CONV_SCALE) with alive BatchNorm
+    kernels 1.5 x LeCun normal (He normal x CONV_SCALE) with alive BatchNorm
     statistics, made on the CPU from `seed`; then moved. The weights do not
     depend on dtype, the compute does. Style 2 scores through
     `AffordanceNet.head(2)`, which follows the model's tied_ets_head
@@ -135,10 +136,12 @@ def make_model(input_size: int, seed: int = 0, device="cuda",
     if snapshot:
         load_snapshot(model, snapshot)
         return model.to(device)
-    init_params(model, torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, mode="fan_in", nonlinearity="relu",
+                                        generator=gen)
                 m.weight.mul_(CONV_SCALE)
     alive_stats_(model, torch.Generator().manual_seed(seed + 1))
     return model.to(device)

@@ -1,8 +1,12 @@
-"""Quaternion and rotation math on batched tensors.
+"""Rotation math on batched tensors: Euler angles, rotation matrices,
+axis-angle, quaternions.
 
-Port of smg_tpu/core/rotation.py (the parts the act step uses). JAX vmaps
-the per-matrix functions; here every function takes leading batch axes.
-Quaternions are (w, x, y, z), unit-norm, Hamilton convention.
+Port of smg_tpu/core/rotation.py, itself the reference's NumPy helpers
+(reference code/utils.py:169-302) plus the quaternion algebra of the
+stepper. JAX vmaps the per-matrix functions; here every function takes
+leading batch axes, and the device follows the inputs. Quaternions are
+(w, x, y, z), unit-norm, Hamilton convention, rotating column vectors by
+R(q) @ v.
 """
 
 from __future__ import annotations
@@ -10,6 +14,44 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def euler2rotm(theta: torch.Tensor) -> torch.Tensor:
+    """Euler angles (..., 3) -> rotation matrices (..., 3, 3), R = Rz(c) @
+    Ry(b) @ Rx(a) (rotation.py:23-38; reference code/utils.py:169-183)."""
+    a, b, c = theta.unbind(-1)
+    ca, sa = torch.cos(a), torch.sin(a)
+    cb, sb = torch.cos(b), torch.sin(b)
+    cc, sc = torch.cos(c), torch.sin(c)
+    r = torch.stack(
+        [
+            cc * cb, cc * sb * sa - sc * ca, cc * sb * ca + sc * sa,
+            sc * cb, sc * sb * sa + cc * ca, sc * sb * ca - cc * sa,
+            -sb, cb * sa, cb * ca,
+        ],
+        dim=-1,
+    )
+    return r.reshape(*theta.shape[:-1], 3, 3)
+
+
+def rotm2euler(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> Euler angles (..., 3), the inverse
+    of euler2rotm with the reference's singular branch taken elementwise
+    (rotation.py:41-54; reference code/utils.py:196-212)."""
+    sy = torch.sqrt(R[..., 0, 0] * R[..., 0, 0] + R[..., 1, 0] * R[..., 1, 0])
+    singular = sy < 1e-6
+    x = torch.where(singular, torch.atan2(-R[..., 1, 2], R[..., 1, 1]),
+                    torch.atan2(R[..., 2, 1], R[..., 2, 2]))
+    y = torch.atan2(-R[..., 2, 0], sy)
+    z = torch.where(singular, torch.zeros_like(sy), torch.atan2(R[..., 1, 0], R[..., 0, 0]))
+    return torch.stack([x, y, z], dim=-1)
+
+
+def is_rotm(R: torch.Tensor, tol: float = 1e-6) -> torch.Tensor:
+    """Whether each R (..., 3, 3) is a rotation matrix: ||R^T R - I|| < tol
+    (rotation.py:224-227; reference code/utils.py:187-192)."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    return torch.linalg.norm(R.transpose(-1, -2) @ R - eye, dim=(-2, -1)) < tol
 
 
 def angle_axis2rotm(angle: torch.Tensor, axis) -> torch.Tensor:
@@ -32,6 +74,23 @@ def angle_axis2rotm(angle: torch.Tensor, axis) -> torch.Tensor:
     return c * eye + (1.0 - c) * outer + sina[..., None, None] * K
 
 
+def rotm2angle_axis(R: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotation matrices (..., 3, 3) -> (angle (...,), axis (..., 3)), read
+    from the quaternion form, which is stable at 0 and pi; +z where the
+    angle is 0 (rotation.py:79-94; reference code/utils.py:239-302)."""
+    q = rotm2quat(R)
+    v = torch.linalg.norm(q[..., 1:], dim=-1)
+    angle = 2.0 * torch.atan2(v, q[..., 0])
+    axis = q[..., 1:] / (v[..., None] + 1e-12)
+    z = torch.tensor([0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    return angle, torch.where(angle[..., None] < 1e-8, z, axis)
+
+
+def quat_identity(device=None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The identity rotation (1, 0, 0, 0)."""
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
 def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product q1 * q2; shapes (..., 4)."""
     w1, x1, y1, z1 = q1.unbind(-1)
@@ -49,6 +108,20 @@ def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
     return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by quaternions q (..., 4):
+    v + 2w (u x v) + 2 u x (u x v) (rotation.py:123-129)."""
+    w, u = q[..., :1], q[..., 1:]
+    u, v = torch.broadcast_tensors(u, v)
+    uv = torch.linalg.cross(u, v)
+    return v + 2.0 * (w * uv + torch.linalg.cross(u, uv))
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the inverse of q."""
+    return quat_rotate(quat_conj(q), v)
 
 
 def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:

@@ -92,6 +92,15 @@ def pre_rotate_angle(
     return torch.where(no_close, torch.zeros_like(rot), rot)
 
 
+def finger_joint_angles(rotate_angle: torch.Tensor, p: SMGParams = DEFAULT) -> torch.Tensor:
+    """Per-joint bend (..., segments) for a total curl (...,): the joints of
+    a finger move in lockstep, rotate_angle / segments each (tendon.py:113-121;
+    reference robot.py:253-280)."""
+    rot = torch.as_tensor(rotate_angle)
+    return (rot / p.segments_per_finger)[..., None].repeat_interleave(
+        p.segments_per_finger, dim=-1)
+
+
 def finger_chain_points(rotate_angle: torch.Tensor, p: SMGParams = DEFAULT):
     """In-plane finger polyline (tendon.py:124-150): (r, z), each (..., 5)."""
     rot = rotate_angle

@@ -37,7 +37,7 @@ from smg_tpu_torch.models.densenet import (
     BN_EPS,
     BN_MOMENTUM,
     bn_eval,
-    he_init_,
+    flax_init_,
     make_trunk,
     no_tf32,
 )
@@ -161,8 +161,10 @@ class AffordanceNet(nn.Module):
 
 
 def init_params(model: AffordanceNet, generator: torch.Generator) -> None:
-    """Seeded He init of every trunk and head (PARITY dev 4)."""
-    he_init_(model, generator)
+    """Seeded init of every trunk and head: Flax's default, as the JAX
+    package's init_params (affordance.py:244-256; no pretrained weights
+    are available offline, PARITY dev 4)."""
+    flax_init_(model, generator)
 
 
 def rotate_image_nearest(img: torch.Tensor, theta) -> torch.Tensor:

@@ -148,7 +148,16 @@ class Transition(nn.Module):
         """BN, ReLU, 1x1, then the 2x2 average pool (densenet.py:77-92)."""
         dt = x.dtype
         h = torch.relu(_norm(train)(x, self.norm, dt))
-        return F.avg_pool2d(F.conv2d(h, self.conv.weight.to(dt)), 2)
+        return avg_pool2(F.conv2d(h, self.conv.weight.to(dt)))
+
+
+def avg_pool2(y: torch.Tensor) -> torch.Tensor:
+    """flax.linen.avg_pool((2, 2), strides=(2, 2)) of NCHW y: the window's
+    sum in y's dtype, rounded after each add in row-major order as XLA
+    reduces a window, then divided by 4."""
+    s = y[..., 0::2, 0::2] + y[..., 0::2, 1::2]
+    s = s + y[..., 1::2, 0::2]
+    return (s + y[..., 1::2, 1::2]) / 4
 
 
 class DenseNetTrunk(nn.Module):
@@ -232,15 +241,27 @@ def make_trunk(kind: str, dtype: torch.dtype = torch.bfloat16,
     raise ValueError(f"unknown trunk '{kind}'")
 
 
-def he_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded He-normal conv weights, identity BatchNorm (PARITY dev 4:
-    no pretrained weights are available offline)."""
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            nn.init.kaiming_normal_(m.weight, mode="fan_in",
-                                    nonlinearity="relu", generator=generator)
-        elif isinstance(m, nn.BatchNorm2d):
-            nn.init.ones_(m.weight)
-            nn.init.zeros_(m.bias)
-            m.running_mean.zero_()
-            m.running_var.fill_(1.0)
+# The standard deviation of a unit normal truncated at +-2 (Flax's
+# variance_scaling divides by it).
+_TRUNC_STD = 0.87962566103423978
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Flax's default init, as the JAX package's init_params draws it
+    (flax.linen's Conv and BatchNorm without kernel_init): every conv kernel
+    lecun_normal (variance 1 / fan_in, a normal truncated at two standard
+    deviations), conv biases zero, BatchNorm scale 1 and bias 0, running
+    statistics 0 / 1; from `generator`."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)

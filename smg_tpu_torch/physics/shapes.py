@@ -36,6 +36,16 @@ def _select(shape_type: torch.Tensor, box, cyl, sph):
     return torch.where(st == BOX, box, torch.where(st == CYLINDER, cyl, sph))
 
 
+def bounding_radius(shape_type: torch.Tensor, half_extents: torch.Tensor) -> torch.Tensor:
+    """Conservative bounding-sphere radius (...,) of shapes (...,) with half
+    extents (..., 3) (shapes.py:134-142): a box's corner, a cylinder's
+    rim, a sphere's radius."""
+    he = half_extents
+    box = torch.linalg.norm(he, dim=-1)
+    cyl = torch.sqrt(he[..., 0] ** 2 + he[..., 2] ** 2)
+    return _select(shape_type, box, cyl, he[..., 0])
+
+
 def sphere_compound(shape_type: torch.Tensor, half_extents: torch.Tensor):
     """(M,), (M, 3) -> offsets (M, 9, 3), radii (M, 9) (shapes.py:44-96)."""
     he = half_extents

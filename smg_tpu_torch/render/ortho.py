@@ -75,3 +75,16 @@ def render_heightmap(obj: Objects, resolution: int = 224):
     table = torch.as_tensor(TABLE_COLOR, dtype=torch.float32, device=dev)
     color = torch.where(hit[..., None], obj_color, table).reshape(B, H, W, 3)
     return depth, ids.to(torch.int32), color
+
+
+def instance_masks(ids: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """Per-slot boolean masks (..., n_slots, H, W) from an id buffer
+    (..., H, W) (ortho.py:101-103)."""
+    slots = torch.arange(n_slots, device=ids.device, dtype=ids.dtype)
+    return ids[..., None, :, :] == slots[:, None, None]
+
+
+def upsample2x(img: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsample of an (H, W, ...) image: the 224 -> 448 mask
+    frame (ortho.py:106-110; reference utils.py:41, trainer.py:165)."""
+    return img.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)

@@ -164,7 +164,7 @@ def blank_prev(B: int, device) -> PrevStep:
 
 def init_loop(seed: int, trainer: Trainer, cfg: LoopConfig,
               scene_slice: SceneSlice | None = None) -> LoopState:
-    """Fresh scenes, a seeded He-initialized online net, its target copy
+    """Fresh scenes, a seeded online net (Flax's default init), its target copy
     and a fresh optimizer (loop.py:166-181); with scene_slice, that slice
     of the batch's scenes."""
     device = trainer.device

@@ -26,7 +26,6 @@ Entry point: `python -m smg_tpu_torch.cli.pretrain_trunks`.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 
 import torch
@@ -39,13 +38,10 @@ from smg_tpu_torch.models.affordance import (
     ModelConfig,
     preprocess_depth,
 )
-from smg_tpu_torch.models.densenet import make_trunk, no_tf32
+from smg_tpu_torch.models.densenet import flax_init_, make_trunk, no_tf32
 
 DECODER_WIDTHS = (256, 128, 64, 32, 16)
 TRUNK_PARTS = ("grasp_trunk", "suction_trunk", "gs_trunk")
-# The standard deviation of a unit normal truncated at +-2 (Flax's
-# variance_scaling divides by it).
-_TRUNC_STD = 0.87962566103423978
 
 
 @dataclass(frozen=True)
@@ -78,31 +74,23 @@ class ReconstructionModel(nn.Module):
         h = self.trunk(x, train).permute(0, 3, 1, 2)
         with no_tf32():
             for i in range(len(DECODER_WIDTHS)):
-                conv = getattr(self, f"dec{i}")
                 h = F.interpolate(h, scale_factor=2, mode="nearest")
-                h = torch.relu(F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt),
-                                        padding=1))
-            h = F.conv2d(h, self.out.weight.to(dt), self.out.bias.to(dt))
+                h = torch.relu(conv_bias(h, getattr(self, f"dec{i}"), dt, padding=1))
+            h = conv_bias(h, self.out, dt)
         return h[:, 0].float()
 
 
+def conv_bias(h: torch.Tensor, conv: nn.Conv2d, dt: torch.dtype, padding: int = 0):
+    """Flax's nn.Conv(dtype=dt) with a bias on NCHW h: the convolution
+    rounded to dt, then the bias (in dt) added and rounded again. A bias
+    fused into the convolution would round once."""
+    return F.conv2d(h, conv.weight.to(dt), padding=padding) + conv.bias.to(dt)[:, None, None]
+
+
 def init_reconstruction(model: ReconstructionModel, generator: torch.Generator) -> None:
-    """Flax's default init (flax.linen's lecun_normal for every conv
-    kernel, zero biases; BatchNorm scale 1, bias 0, running 0 / 1), from
-    `generator`."""
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, nn.Conv2d):
-                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
+    """Flax's default init (densenet.flax_init_: lecun-normal kernels, zero
+    biases, identity BatchNorm), from `generator`."""
+    flax_init_(model, generator)
 
 
 def random_patch_mask(gen: torch.Generator, size: int, patch: int, ratio: float,

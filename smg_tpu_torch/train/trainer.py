@@ -128,7 +128,7 @@ class Trainer:
                                 weight_decay=0.0)
 
     def init_state(self, generator: torch.Generator) -> TrainerState:
-        """Seeded He init of the online net (PARITY dev 4), the target as its
+        """Seeded init of the online net (Flax's default, aff.init_params), the target as its
         copy, a fresh optimizer."""
         aff.init_params(self.model, generator)
         self.target.load_state_dict(self.model.state_dict())

@@ -1,10 +1,18 @@
-"""Per-phase wall-clock timing of the host loop (port of
-smg_tpu/utils/profiling.py::PhaseTimer).
+"""Tracing and per-phase timing (port of smg_tpu/utils/profiling.py).
 
-`PhaseTimer.phase(name, block_on=x)` synchronises the card of x (a
-tensor or a device) before it stops the clock, so a phase's time is its
-execution, not its enqueue (the JAX version calls block_until_ready
-there).
+- `trace(log_dir)`: a context manager around torch.profiler.profile that
+  writes a Chrome trace under log_dir when it closes (open it in
+  TensorBoard's profiler plugin or chrome://tracing); the card's kernels
+  are traced when CUDA is available, the host's ops always.
+- `annotate(name)`: torch.profiler.record_function, a named region in
+  that trace.
+- `PhaseTimer.phase(name, block_on=x)` synchronises the card of x (a
+  tensor or a device) before it stops the clock, so a phase's time is its
+  execution, not its enqueue (the JAX version calls block_until_ready
+  there).
+
+The JAX module's `readback` has no counterpart: torch.cuda.synchronize
+waits for the card.
 """
 
 from __future__ import annotations
@@ -14,6 +22,23 @@ import time
 from collections import defaultdict
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a trace: `with profiling.trace("logs/trace"): ...`."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+def annotate(name: str):
+    """Label a region in the trace."""
+    return torch.profiler.record_function(name)
 
 
 class PhaseTimer:

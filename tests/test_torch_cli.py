@@ -156,7 +156,7 @@ def test_mesh_dir_stops(tmp_path):
     ("--trunk tiny", ("train", "model", "trunk"), "tiny"),
     ("--segmentation learned --segmenter_checkpoint s", ("env", "segmentation"), "learned"),
 ])
-def test_ported_flags_parse(argv, field, value):
+def test_ported_nested_flags_parse(argv, field, value):
     cfg = cfg_mod.parse_args(argv.split())
     assert _flat(cfg.to_dict())[field] == value
 

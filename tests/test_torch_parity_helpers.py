@@ -249,6 +249,15 @@ def shallow_train_patch(monkeypatch):
                         functools.partial(jft.score_train, dtype=jnp.float32))
 
 
+def shallow_train_patch_bf16(monkeypatch):
+    """shallow_train_patch's bf16 sibling: shallow bf16 Flax trunks, and
+    the JAX fast_train forward at its own default, bf16, as the JAX
+    package trains. Test-local."""
+    import jax.numpy as jnp
+
+    shallow_trunk_patch(monkeypatch, TRAIN_SHALLOW, jnp.bfloat16)
+
+
 def make_trainers(method="reinforcement", conv2="pk", jax_conv2="vjp", B=4,
                   unroll="auto", is_ets=False, **model_kw):
     """(JAX trainer, params, stats, port trainer) with the same weights, at
@@ -385,3 +394,67 @@ def train_images(seed, n, S=TRAIN_S):
         y, x = rng.randint(30, 150, 2)
         mask[b, y:y + 45, x:x + 60] = True
     return depth, mask
+
+
+# ---------------------------------------------------------------------------
+# The bf16 training side (test_torch_bf16_{train,update}.py)
+# ---------------------------------------------------------------------------
+
+# XLA:CPU computes bf16 convolutions and dots in f32 and, under its default
+# xla_allow_excess_precision, drops the rounding of their results to bf16
+# (and of the weight gradients they feed back to f32 parameters). Compiled
+# with it off, JAX rounds wherever its program says, as the port does.
+AS_WRITTEN = {"xla_allow_excess_precision": False}
+BF16_FLOOR = 2e-3
+BF16_FACTOR = 1.5
+BF16_LOSS_RTOL = 0.01
+
+
+def compile_as_written(fn, *args):
+    """jax.jit(fn) compiled for args, rounding to bf16 as written."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=AS_WRITTEN)
+
+
+def alive_stats(tree, seed):
+    """Running statistics uniform in [0.5, 1.5] (test_torch_pretrain.py)."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(seed)
+    return jax.tree_util.tree_map(
+        lambda s: jnp.asarray(rng.uniform(0.5, 1.5, s.shape).astype(np.float32)), tree)
+
+
+def grad_capture():
+    """An optax transformation whose state is the last gradient it saw and
+    whose updates are zero: a JAX step then hands its gradients back."""
+    import jax.numpy as jnp
+    import optax
+
+    zeros = lambda t: jax.tree_util.tree_map(jnp.zeros_like, t)  # noqa: E731
+    return optax.GradientTransformation(zeros, lambda g, s, p=None: (zeros(g), g))
+
+
+def assert_bf16_rule(got: dict, jax_bf16: list, f32: dict, what: str):
+    """The bf16 rule on a tree of leaves: each leaf of the port's bf16
+    result sits no farther from JAX float32 (relative L2, leaf_gaps) than
+    max(BF16_FLOOR, BF16_FACTOR x) JAX bf16's distance from it, the larger
+    distance where JAX has two bf16 forms of the computation (jax_bf16, a
+    list of trees). Prints the eight leaves nearest their bound."""
+    port_gap = leaf_gaps(got, f32)
+    jax_gap = {k: max(g[k] for g in (leaf_gaps(form, f32) for form in jax_bf16)) for k in f32}
+    bound = {k: max(BF16_FLOOR, BF16_FACTOR * jax_gap[k]) for k in f32}
+    ratio = {k: port_gap[k] / max(BF16_FLOOR, jax_gap[k]) for k in f32}
+    print(f"{what}: the port over JAX bf16's distance from float32, largest "
+          f"{max(ratio.values()):.3f} over {len(f32)} leaves")
+    for k in sorted(f32, key=lambda k: -ratio[k])[:8]:
+        print(f"  {'/'.join(k)}: port {port_gap[k]:.3e}, JAX bf16 {jax_gap[k]:.3e}")
+    bad = [k for k in f32 if port_gap[k] > bound[k]]
+    assert not bad, f"{what}: " + ", ".join(
+        f"{'/'.join(k)} port {port_gap[k]:.3e} > {bound[k]:.3e}" for k in bad)
+
+
+def assert_bf16_loss(got: float, jax_bf16: list, what: str):
+    """A bf16 loss agrees within BF16_LOSS_RTOL with JAX's bf16 loss (the
+    nearer, where JAX has two bf16 forms)."""
+    assert min(abs(got - j) / abs(j) for j in jax_bf16) <= BF16_LOSS_RTOL, (
+        f"{what}: loss {got} against JAX bf16's {jax_bf16}")

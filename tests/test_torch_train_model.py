@@ -25,7 +25,7 @@ import torch
 from smg_tpu.models import affordance as jaff
 from smg_tpu.models import fast_trunk as jft
 from smg_tpu_torch import bridge
-from smg_tpu_torch.models.affordance import AffordanceNet, ModelConfig, preprocess_depth
+from smg_tpu_torch.models.affordance import AffordanceNet, ModelConfig, init_params, preprocess_depth
 
 from test_torch_parity_helpers import (
     TRAIN_S,
@@ -38,6 +38,7 @@ from test_torch_parity_helpers import (
     port_grads,
     rand_stats,
     shallow_train_patch,
+    shallow_trunk_patch,
     to_numpy_tree,
     train_images,
     witness_tol,
@@ -110,3 +111,35 @@ def test_score_train_matches_jax(monkeypatch, conv2, style):
                 got[path + ("mean",)] = new[m][0].numpy()
                 got[path + ("var",)] = new[m][1].numpy()
     assert_stats(got, flat_tree(to_numpy_tree(jmut)))
+
+
+def test_init_params_is_flax_default(monkeypatch):
+    """The port's init_params draws what the JAX package's init_params
+    does (Flax's defaults): every conv kernel LeCun normal, truncated at
+    two standard deviations of the underlying normal, with standard
+    deviation sqrt(1 / fan_in); BatchNorm scale 1, bias 0, running mean 0,
+    variance 1. The kernels' sample standard deviations, the port's and
+    JAX's, are held to sqrt(1 / fan_in) within 5 / sqrt(2 n) (He normal
+    would read sqrt(2) of it)."""
+    shallow_trunk_patch(monkeypatch, TRAIN_SHALLOW, jnp.float32)
+    jm = jaff.ModelConfig(method="reinforcement", input_size=64, dtype="float32")
+    variables = init_flax_all(jaff.AffordanceNet(jm), 128, jm.feature_hw, 0)
+    net = AffordanceNet(ModelConfig(method="reinforcement", input_size=64,
+                                    block_config=TRAIN_SHALLOW))
+    init_params(net, torch.Generator().manual_seed(0))
+    got_p, got_s = (flat_tree(t) for t in bridge.dump_affordance_params(net))
+    want_p = flat_tree(to_numpy_tree(variables["params"]))
+    want_s = flat_tree(to_numpy_tree(variables["batch_stats"]))
+    assert got_p.keys() == want_p.keys() and got_s.keys() == want_s.keys()
+    for k, want in want_p.items():
+        got = got_p[k]
+        assert got.shape == want.shape, k
+        if k[-1] != "kernel":
+            np.testing.assert_array_equal(got, want, err_msg="/".join(k))
+            continue
+        std = (1.0 / np.prod(want.shape[:-1])) ** 0.5
+        for side, w in (("port", got), ("jax", want)):
+            assert abs(w.std() / std - 1) <= 5 / (2 * w.size) ** 0.5, (side, k, w.std() / std)
+            assert np.abs(w).max() <= 2 * std / 0.87962566103423978 * (1 + 1e-6), (side, k)
+    for k, want in want_s.items():
+        np.testing.assert_array_equal(got_s[k], want, err_msg="/".join(k))
