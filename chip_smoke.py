@@ -33,14 +33,21 @@
    is_testing=True, init_loop with the seeded init, then act steps,
    with per-phase times, the success rate and each kernel's launch count;
    plus one scene's trunk features against the plain bf16 path on the CPU.
-5. The training path: make_prod_trainer(32, fast_train_conv2="pk") +
-   make_prod_loop_cfg(32, is_testing=False), init_loop, 3 training steps
-   (labels, update through K6, Adam) with per-phase times, the loss and
-   state checks and each kernel's launch count; then one update with
-   'conv' (autograd) against 'pk' on the same experience and weights
-   (times, losses), and on the same batch the update's gradients through
-   K6 against K6's plain versions on the CPU and against a float32 update.
-6. The eval backends' path: the decision-parity entry point
+5. The per-scene executor, from the act path's trainer and last state: an
+   act step with executor="vmap" and one with "batched" (times, every
+   scene's success, their agreement reported); one physics step's contact
+   force and torque of the two formulations from the same state, within
+   1e-5 of the largest; eager physics-step times; K1-K4's launches (K1
+   none in the vmap step).
+6. The training path: make_prod_trainer(32, fast_train_conv2="pk") +
+   make_prod_loop_cfg(32, is_testing=False), init_loop, 2 training steps
+   (the second with delayed labels; labels, update through K6, Adam) with
+   per-phase times, the loss and state checks and each kernel's launch
+   count; then one update with 'conv' (autograd) against 'pk' on the same
+   experience and weights (times, losses), and on the same batch the
+   update's gradients through K6 against K6's plain versions on the CPU
+   and against a float32 update.
+7. The eval backends' path: the decision-parity entry point
    (smg_tpu_torch/cli/decision_parity.py) on 8 rendered scenes (104 images
    per trunk call) for the backends xla_fl, xla_pk and pallas x 3 styles at
    input 224 and 640, each score held to the module eval forward in float32
@@ -49,44 +56,7 @@
    launch count; then one 104-image
    trunk pass per backend and size, timed, its features within 5% of the
    oracle's largest |value|.
-7. The CLI path, each entry point in a subprocess with its real argv and
-   the launch counts set to 0 in it: `python -m smg_tpu_torch.cli.main`
-   trains 2 iterations at b32 with the held flags (--method reinforcement
-   --is_ets --is_pe --is_oo) and scene-0 imagery every iteration, then the
-   run tree is checked (config.json, the ten transitions logs with B rows
-   per step where the layout has them, their .bin mirrors read back equal
-   when the native library loaded, one checkpoint, the snapshot, the
-   imagery with a 480 x 640 RGB-D frame); it resumes with
-   --continue_logging for 1 iteration (numbered 3, a second checkpoint)
-   and tests 1 iteration with --is_testing --load_snapshot; K1-K4's
-   launches summed over the three runs.
-8. The perception path: the SlotSegmenter's forward (b32) and training
-   step (b16) and the batched NMS timed in process; then in subprocesses
-   as in 7: cli.main one iteration at b32 on an --obj_mesh_dir of .obj
-   meshes written here (native fits and their shape types checked first),
-   cli.train_segmenter 40 steps at b16 on cluttered scenes (the loss
-   falls), cli.eval_segmenter on 8 held-out scenes (base and
-   --perspective arms), cli.main with --segmentation learned on that
-   checkpoint (a scene acts on a valid learned mask), cli.main --trunk
-   tiny, and cli.smoke (tiny trunk); K1-K4's launches summed over them.
-9. Trunk pretraining: one reconstruction step at b16 (its batch and its
-   step, CUDA events and device time); `cli.pretrain_trunks` 20 steps at
-   b16 in a subprocess (the mean of the last 5 losses under the first
-   5's); the checkpoint loaded into a trainer's six trunks, equal; then
-   `cli.main` with the held flags and --pretrained_trunks for 2
-   iterations (target trunks equal the checkpoint's, online trunks within
-   one Adam step of it); K1-K4's launches.
-10. The per-scene executor: from one b32 testing state, an act step with
-   executor="vmap" and one with "batched" (times, every scene's success,
-   their agreement reported); one physics step's contact force and torque
-   of the two formulations from the same state, within 1e-5 of the
-   largest; eager physics-step times; K1-K4's launches (K1 none in the
-   vmap step).
-11. The sharded step: in a subprocess with WORLD_SIZE 1 over NCCL, 3 b32
-   training steps under fast_train_conv2="pk" through make_sharded_step,
-   then the plain train_step from the same seed: the losses bit-equal;
-   K1-K4 and K6's launches.
-12. The rotations path: the production trainer with num_rotations 16 and
+8. The rotations path: the production trainer with num_rotations 16 and
    the ETS head untied, ETS on (8 scenes a chunk x (16 rotated scene
    images + 12 masks) a grasp or suction trunk call). On the initial
    observation: the scores (32, 12, 16), rotation 0 against an R = 1
@@ -98,10 +68,49 @@
    rotation columns in [0, 16), finite losses, gs_head's parameters and
    statistics moved by a step whose batch executed ETS (at least one
    must), and K4 / K3 / K2 launched 1 / 3 / 58 times per eval trunk call.
-13. Prints the kernel table as one JSON line (each kernel's launches also
-   per path: act, train, parity, cli, perception, pretrain, vmap,
-   sharded, rotations), the card line, and last {"ok": true, "device":
-   {...}}. Any failed check raises (exit code != 0).
+9. In-process timings of the next paths: the SlotSegmenter's forward (b32)
+   and training step (b16) and the batched NMS; one trunk-pretraining
+   step at b16 (its batch and its step); CUDA events and device time.
+10. Four paths side by side, one thread each, their entry points in
+   subprocesses with their real argv and the launch counts set to 0 in
+   each (so their step times are not one run's alone):
+   - the CLI: `python -m smg_tpu_torch.cli.main` trains 2 iterations at
+     b32 with the held flags (--method reinforcement --is_ets --is_pe
+     --is_oo) and scene-0 imagery every iteration, then the run tree is
+     checked (config.json, the ten transitions logs with B rows per step
+     where the layout has them, their .bin mirrors read back equal when
+     the native library loaded, one checkpoint, the snapshot, the imagery
+     with a 480 x 640 RGB-D frame); then side by side it resumes with
+     --continue_logging for 1 iteration (numbered 3, a second checkpoint)
+     and tests 1 iteration with --is_testing --load_snapshot; K1-K4's
+     launches summed over the three runs;
+   - perception: .obj meshes written here, fitted (native, their shape
+     types checked); side by side cli.main one iteration at b32 on that
+     --obj_mesh_dir, cli.train_segmenter 40 steps at b16 on cluttered
+     scenes (the loss falls), cli.main --trunk tiny and cli.smoke (tiny
+     trunk); then side by side cli.eval_segmenter on 8 held-out scenes
+     (base and --perspective arms) and cli.main with --segmentation
+     learned on that checkpoint (a scene acts on a valid learned mask);
+     K1-K4's launches summed over them;
+   - trunk pretraining: `cli.pretrain_trunks` 20 steps at b16 (the mean of
+     the last 5 losses under the first 5's); then side by side the
+     checkpoint loaded into a trainer's six trunks, equal, with the
+     update's modes compared at those warm weights after two training
+     steps, and `cli.main` with the held flags and --pretrained_trunks for
+     2 iterations (target trunks equal the checkpoint's, online trunks
+     within one Adam step of it); K1-K4's launches;
+   - the sharded step: in a subprocess with WORLD_SIZE 1 over NCCL, 2 b32
+     training steps under fast_train_conv2="pk" through make_sharded_step,
+     then the plain train_step from the same seed: the losses bit-equal;
+     K1-K4 and K6's launches.
+11. Prints the wall seconds of every phase as one JSON line
+   ({"phase_seconds": {...}}, the build, each phase and its parts as
+   "phase/part", the four side-by-side paths' own and their group's, and
+   "total" since the script started), the kernel table as one JSON line
+   (each kernel's launches also per path: act, train, parity, cli,
+   perception, pretrain, vmap, sharded, rotations), the card line, and
+   last {"ok": true, "device": {...}}. Any failed check raises (exit code
+   != 0).
 
 Options: `--out DIR` writes the details (chip_smoke.json, and with
 --profile the profiler table) to DIR; `--profile` adds one act step under
@@ -113,6 +122,7 @@ snapshot (update_modes_on_snapshot). Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -121,15 +131,18 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
-import torch
+T_START = time.perf_counter()   # the phase table's total counts from here, torch's import too
+
+import torch  # noqa: E402
 
 SEED = 0
 B_MAIN = 32
 ACT_STEPS = 2
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2       # the first on the blank previous step, the second with labels
 STREAMS = 8 * 13      # one trunk pass: scene_chunk 8 scenes x (1 + 12 masks)
 TRAIN_IMAGES = 64     # one style group of the b32 update: 32 scenes x 2 streams
 TOL_BF16 = 2.0 ** -6  # of the largest |value|: a few bf16 steps
@@ -155,6 +168,9 @@ DP_SCENES = 8         # the decision-parity path: 8 x (1 + 12) = STREAMS images
 SIZES = (224, 640)    # the trunk's input sizes (ModelConfig.input_size)
 LOOP_LAUNCHES = 200   # K1's timing loop: back-to-back launches per reading
 DETAIL = {}
+SECONDS = {}          # wall seconds by phase, and by "phase/part" within one
+_SECONDS_LOCK = threading.Lock()
+_PHASE = threading.local()   # .name: the phase this thread runs
 
 # The card's published peaks (H100 SXM, dense, at 700 W): the bound of a
 # kernel is the larger of its operations over the peak for their type and
@@ -261,6 +277,41 @@ def loop_ms(fn, n=LOOP_LAUNCHES):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n, device_ms(fn, calls=n, replays=1)
+
+
+def _phase_name() -> str:
+    return getattr(_PHASE, "name", "")
+
+
+@contextlib.contextmanager
+def wall_clock(part: str):
+    """Adds the block's wall seconds to SECONDS["<phase>/<part>"], under the
+    phase this thread runs (`part` alone outside one)."""
+    key = f"{_phase_name()}/{part}" if _phase_name() else part
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        with _SECONDS_LOCK:
+            SECONDS[key] = SECONDS.get(key, 0.0) + dt
+
+
+def side_by_side(calls: dict) -> dict:
+    """Runs each function of `calls` (name -> function of no arguments) in a
+    thread of its own under this thread's phase; {name: result} once all
+    have ended, the first failure (in `calls`' order) raised then."""
+    import concurrent.futures as cf
+
+    phase = _phase_name()
+
+    def run(fn):
+        _PHASE.name = phase
+        return fn()
+
+    with cf.ThreadPoolExecutor(len(calls)) as pool:
+        futures = {name: pool.submit(run, fn) for name, fn in calls.items()}
+    return {name: f.result() for name, f in futures.items()}
 
 
 def rel_err(got, want):
@@ -410,7 +461,8 @@ def phase_dense_layer(dev):
     DETAIL["K2"] = rows
     print(f"K2 one xla_fl trunk pass at 224 (58 layers, {N} images): kernel "
           f"{tot_ms:.3f} ms, plain {tot_plain:.3f} ms")
-    split = dense_layer_split(dev)
+    with wall_clock("split"):
+        split = dense_layer_split(dev)
     flops = nbytes = 0.0
     for H, c_in in densenet_layers():
         P = N * H * H
@@ -1025,7 +1077,8 @@ def phase_dense_layer_train(dev):
     print(f"K6 one train trunk pass at 224 (58 layers, {N} images): K6a {tot['fwd']:.3f} ms "
           f"(plain {tot['fwd_plain']:.3f}), K6b {tot['bwd']:.3f} ms (plain "
           f"{tot['bwd_plain']:.3f}); 'conv' autograd forward + backward {tot['conv']:.3f} ms")
-    split = dense_layer_train_split(dev)
+    with wall_clock("split"):
+        split = dense_layer_train_split(dev)
     common = {"route": "cuda", "source": "smg_tpu_torch/csrc/dense_layer_train.cu",
               "library_ms": None, "conv_autograd_fwd_bwd_ms": tot["conv"],
               "library_parts_ms": split["library_ms"]}
@@ -1275,7 +1328,8 @@ def drive_act_path(dev, kernels):
                            "reset_settle_steps": cfg.reset_settle_steps}
     print(f"success rate over {ACT_STEPS} steps x {B_MAIN} scenes: "
           f"{statistics.mean(successes):.4f}")
-    reference_score(trainer, first_obs)
+    with wall_clock("reference_score"):
+        reference_score(trainer, first_obs)
     return trainer, cfg, state, [s["seconds"] for s in steps]
 
 
@@ -1284,8 +1338,9 @@ def _finite(t) -> bool:
 
 
 def drive_train_path(dev, kernels):
-    """The training main path: 3 b32 training steps with the update's dense
-    layers through K6, then 'conv' against 'pk' on one update."""
+    """The training main path: TRAIN_STEPS b32 training steps with the
+    update's dense layers through K6, then 'conv' against 'pk' on one
+    update."""
     from smg_tpu_torch.train import loop
     from smg_tpu_torch.train.prod_config import make_prod_loop_cfg, make_prod_trainer
 
@@ -1342,7 +1397,8 @@ def drive_train_path(dev, kernels):
             check(counts[k["name"]] > 0,
                   f"{k['name']} was not launched by the training path")
     DETAIL["train_path"] = {"launches": counts, "init_s": init_s, "steps": steps}
-    DETAIL["update_modes"] = compare_update_modes(trainer, state)
+    with wall_clock("compare_update_modes"):
+        DETAIL["update_modes"] = compare_update_modes(trainer, state)
 
 
 def _part_grads(model) -> dict:
@@ -1365,7 +1421,7 @@ def _update_grads(trainer, snap, exp, labels, iteration, mode):
     return float(loss), _part_grads(trainer.model)
 
 
-def compare_update_modes(trainer, state, weights: str = ""):
+def compare_update_modes(trainer, state, weights: str = "", cpu_plain: bool = True):
     """The update's gradients through K6 at full depth, and its time; the
     printed lines name `weights` where given.
 
@@ -1376,9 +1432,10 @@ def compare_update_modes(trainer, state, weights: str = ""):
     2. On the same batch, the bf16 'pk' and 'conv'
        gradients against the float32 'conv' update on the card: 'pk' is no
        farther from it than TRUTH_RATIO times 'conv' is, per network part.
-       A part with no gradient in one run has none in the others. Reported:
-       the 'pk' update on the card against the same update on the CPU (K6's
-       plain versions, the same bf16 rounding points).
+       A part with no gradient in one run has none in the others. Reported
+       where `cpu_plain`: the 'pk' update on the card against the same
+       update on the CPU (K6's plain versions, the same bf16 rounding
+       points).
     """
     from smg_tpu_torch.train.trainer import Trainer, TrainerState
 
@@ -1415,12 +1472,15 @@ def compare_update_modes(trainer, state, weights: str = ""):
     trainer.cfg = cfg0
     trainer.model.load_state_dict(model_snap)
     trainer.opt.load_state_dict(opt_snap)
-    cpu = Trainer(cfg0, device="cpu")
-    t0 = time.perf_counter()
-    runs["pk plain"] = _update_grads(cpu, model_snap, exp.map(lambda t: t.cpu()),
-                                     labels.cpu(), it, "pk")
-    cpu_s = time.perf_counter() - t0
-    del cpu
+    cpu_s = None
+    if cpu_plain:
+        cpu = Trainer(cfg0, device="cpu")
+        t0 = time.perf_counter()
+        with wall_clock("cpu_plain_update"):
+            runs["pk plain"] = _update_grads(cpu, model_snap, exp.map(lambda t: t.cpu()),
+                                             labels.cpu(), it, "pk")
+        cpu_s = time.perf_counter() - t0
+        del cpu
     f32 = Trainer(dataclasses.replace(cfg0, model=dataclasses.replace(
         cfg0.model, dtype="float32")), device=trainer.device)
     runs["f32 conv"] = _update_grads(f32, model_snap, exp, labels, it, "conv")
@@ -1433,14 +1493,17 @@ def compare_update_modes(trainer, state, weights: str = ""):
             if k not in live:
                 check(float(g[k].norm()) == 0.0, f"{name} update: a gradient in {k}")
     check(len(live) >= 2, f"update gradients in {live} only")
-    kp = {k: _rel_l2(runs["pk"][1][k], runs["pk plain"][1][k]) for k in live}
+    kp = ({k: _rel_l2(runs["pk"][1][k], runs["pk plain"][1][k]) for k in live}
+          if cpu_plain else None)
     to_f32 = {m: {k: _rel_l2(runs[m][1][k], truth[k]) for k in live} for m in ("pk", "conv")}
     pk_conv = {k: _rel_l2(runs["pk"][1][k], runs["conv"][1][k]) for k in live}
     fmt = lambda d: ", ".join(f"{k} {v:.4f}" for k, v in d.items())  # noqa: E731
     print(f"update gradients{at} on the batch (styles "
           f"{torch.bincount(exp.style[exp.valid].long(), minlength=3).tolist()}), "
-          f"relative L2 per part: K6 on the card vs the plain versions on the CPU "
-          f"({cpu_s:.1f} s) (reported): {fmt(kp)}; bf16 'pk' vs f32: "
+          f"relative L2 per part: "
+          + (f"K6 on the card vs the plain versions on the CPU ({cpu_s:.1f} s) "
+             f"(reported): {fmt(kp)}; " if cpu_plain else "")
+          + "bf16 'pk' vs f32: "
           f"{fmt(to_f32['pk'])}; bf16 'conv' vs f32: {fmt(to_f32['conv'])} (bound: 'pk' "
           f"<= {TRUTH_RATIO} x 'conv'); 'pk' vs 'conv': {fmt(pk_conv)}")
     check(all(to_f32["pk"][k] <= TRUTH_RATIO * to_f32["conv"][k] for k in live),
@@ -1697,9 +1760,10 @@ def run_cli(module: str, args, tmp: Path, tag: str):
     launch counts, seconds). A nonzero exit fails the run."""
     out = tmp / f"{tag}.counts.json"
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", CLI_RUNNER, str(out), module, *args],
-                         capture_output=True, text=True, timeout=600,
-                         cwd=Path(__file__).resolve().parent)
+    with wall_clock(tag):
+        res = subprocess.run([sys.executable, "-c", CLI_RUNNER, str(out), module, *args],
+                             capture_output=True, text=True, timeout=600,
+                             cwd=Path(__file__).resolve().parent)
     seconds = time.perf_counter() - t0
     if res.returncode != 0:
         print(res.stdout[-4000:] + res.stderr[-4000:])
@@ -1708,6 +1772,15 @@ def run_cli(module: str, args, tmp: Path, tag: str):
         line for line in res.stdout.splitlines()
         if line.startswith(("Training iteration", "Testing iteration", "done:", "smoke ok"))))
     return res.stdout, json.loads(out.read_text()), seconds
+
+
+def sum_counts(runs) -> dict:
+    """Each kernel's launches summed over the runs' counts."""
+    total = {name: 0 for name in launch_counters()}
+    for counts in runs:
+        for name, c in counts.items():
+            total[name] += c
+    return total
 
 
 def _log_rows(run_dir: Path, name: str):
@@ -1771,33 +1844,43 @@ def drive_cli_path(kernels):
     """The experiment CLI's main path through its entry points, each in a
     subprocess with its real argv: python -m smg_tpu_torch.cli.main trains
     CLI_TRAIN_ITERS iterations at b32 with the held flags and scene-0
-    imagery every iteration, resumes with --continue_logging for one
-    more, tests one iteration with --load_snapshot on the held-out
-    catalog. The run tree is checked after each, and K1-K4's launches
-    summed over the three runs (cli.smoke runs in the perception path)."""
+    imagery every iteration; then, side by side, it resumes with
+    --continue_logging for one more and tests one iteration with
+    --load_snapshot (a copy of the training run's snapshot, which the
+    resume rewrites) on the held-out catalog. The run tree is checked after
+    each, and K1-K4's launches summed over the three runs (cli.smoke runs
+    in the perception path)."""
+    import shutil
     import tempfile
 
     main_mod = "smg_tpu_torch.cli.main"
-    total = {name: 0 for name in launch_counters()}
-    outs, seconds = {}, {}
+    outs, counts, seconds = {}, {}, {}
 
     def cli(tag, module, args):
-        outs[tag], counts, seconds[tag] = run_cli(module, args, tmp, tag)
-        for name, c in counts.items():
-            total[name] += c
+        """The run as a function of no arguments (for side_by_side)."""
+        def run():
+            outs[tag], counts[tag], seconds[tag] = run_cli(module, args, tmp, tag)
+        return run
 
     with tempfile.TemporaryDirectory(prefix="smg_cli_") as td:
         tmp = Path(td)
         cli("train", main_mod, [*CLI_FLAGS, "--max_iterations", str(CLI_TRAIN_ITERS),
                                 "--imagery_every", "1",
-                                "--logging_directory", str(tmp / "train")])
+                                "--logging_directory", str(tmp / "train")])()
         (run_dir,) = (tmp / "train").iterdir()
         tree = check_run_tree(run_dir, CLI_TRAIN_ITERS)
+        snap = tmp / "snapshot"
+        shutil.copyfile(run_dir / "models" / "snapshot", snap)
 
         n = CLI_TRAIN_ITERS + 1
-        cli("resume", main_mod, [*CLI_FLAGS, "--continue_logging",
-                                 "--logging_directory", str(run_dir),
-                                 "--max_iterations", str(n), "--imagery_every", "0"])
+        side_by_side({
+            "resume": cli("resume", main_mod, [
+                *CLI_FLAGS, "--continue_logging", "--logging_directory", str(run_dir),
+                "--max_iterations", str(n), "--imagery_every", "0"]),
+            "test": cli("test", main_mod, [
+                *CLI_FLAGS, "--is_testing", "--load_snapshot", "--snapshot_file", str(snap),
+                "--obj_mesh_dir", "datasets/testing", "--max_iterations", "1",
+                "--imagery_every", "0", "--logging_directory", str(tmp / "test")])})
         check(f"Resumed trainer state from checkpoint step {n - 1} (iteration {n - 1})"
               in outs["resume"], "the resumed run restored no checkpoint")
         check(f"Training iteration: {n} |" in outs["resume"],
@@ -1807,14 +1890,11 @@ def drive_cli_path(kernels):
         ckpts = sorted(p.name for p in (run_dir / "models" / "ckpt").glob("*.pt"))
         check(ckpts == [f"{n - 1}.pt", f"{n}.pt"], f"checkpoints after resume {ckpts}")
 
-        cli("test", main_mod, [*CLI_FLAGS, "--is_testing", "--load_snapshot",
-                               "--snapshot_file", str(run_dir / "models" / "snapshot"),
-                               "--obj_mesh_dir", "datasets/testing", "--max_iterations", "1",
-                               "--imagery_every", "0", "--logging_directory", str(tmp / "test")])
         check("Pre-trained model snapshot loaded from" in outs["test"]
               and "Testing iteration: 1 |" in outs["test"], "the testing run")
         (test_dir,) = (tmp / "test").iterdir()
         check(_log_rows(test_dir, "reward-value").shape[0] == B_MAIN, "testing run rows")
+    total = sum_counts(counts.values())
     print("launches in the CLI path: " + ", ".join(
         f"{name.split()[0]} {n}" for name, n in total.items()))
     for k in kernels:
@@ -1903,30 +1983,32 @@ def phase_segmenter(dev) -> dict:
     return out
 
 
-def drive_perception_path(dev, kernels):
+def drive_perception_path(kernels):
     """The perception slice through its entry points, each in a subprocess
-    with its real argv: python -m smg_tpu_torch.cli.main at b32 on an
-    --obj_mesh_dir of .obj meshes written here (their fits checked first:
-    native, the right shape types); cli.train_segmenter 40 steps at b16 on
-    cluttered scenes (the last loss below the first); cli.eval_segmenter
-    on 8 held-out scenes, base and --perspective; cli.main with the held
-    flags and --segmentation learned on that checkpoint (a scene acts on a
-    learned mask); cli.main --trunk tiny; cli.smoke (tiny trunk). K1-K4's
-    launches summed over the runs."""
+    with its real argv (the segmenter's in-process timings are
+    phase_segmenter's). The .obj meshes written here are fitted first
+    (native, the right shape types); then side by side: python -m
+    smg_tpu_torch.cli.main at b32 on that --obj_mesh_dir,
+    cli.train_segmenter SEG_STEPS steps at b16 on cluttered scenes (the
+    last loss below the first), cli.main --trunk tiny and cli.smoke (tiny
+    trunk); then, side by side on the segmenter's checkpoint,
+    cli.eval_segmenter on 8 held-out scenes, base and --perspective, and
+    cli.main with the held flags and --segmentation learned (a scene acts
+    on a learned mask). K1-K4's launches summed over the runs."""
     import tempfile
 
     from smg_tpu_torch.utils import meshes, native
 
     main_mod = "smg_tpu_torch.cli.main"
-    total = {name: 0 for name in launch_counters()}
-    outs, seconds = {}, {}
+    outs, counts, seconds = {}, {}, {}
 
     def cli(tag, module, args):
-        outs[tag], counts, seconds[tag] = run_cli(module, args, tmp, tag)
-        for name, c in counts.items():
-            total[name] += c
+        """The run as a function of no arguments (for side_by_side)."""
+        def run():
+            outs[tag], counts[tag], seconds[tag] = run_cli(module, args, tmp, tag)
+        return run
 
-    detail = {"segmenter": phase_segmenter(dev)}
+    detail = {}
     with tempfile.TemporaryDirectory(prefix="smg_perception_") as td:
         tmp = Path(td)
         mesh_root = tmp / "meshes"
@@ -1938,15 +2020,22 @@ def drive_perception_path(dev, kernels):
         (g_types, _), (s_types, _) = meshes.load_object_sets(str(mesh_root))
         print(f"mesh ingest: native fits, enveloping types {g_types.tolist()}, "
               f"sucking types {s_types.tolist()}")
-        cli("mesh", main_mod, [*CLI_FLAGS, "--obj_mesh_dir", str(mesh_root),
-                               "--max_iterations", "1", "--imagery_every", "0",
-                               "--logging_directory", str(tmp / "mesh")])
-        check("Training iteration: 1 |" in outs["mesh"], "the mesh-catalog run")
 
         ckpt = str(tmp / "segmenter.pt")
-        cli("train_segmenter", "smg_tpu_torch.cli.train_segmenter",
-            ["--steps", str(SEG_STEPS), "--batch_size", str(SEG_BATCH), "--is_cluttered",
-             "--out", ckpt])
+        side_by_side({
+            "mesh": cli("mesh", main_mod, [*CLI_FLAGS, "--obj_mesh_dir", str(mesh_root),
+                                           "--max_iterations", "1", "--imagery_every", "0",
+                                           "--logging_directory", str(tmp / "mesh")]),
+            "train_segmenter": cli("train_segmenter", "smg_tpu_torch.cli.train_segmenter",
+                                   ["--steps", str(SEG_STEPS), "--batch_size", str(SEG_BATCH),
+                                    "--is_cluttered", "--out", ckpt]),
+            "tiny": cli("tiny", main_mod, [*CLI_FLAGS, "--trunk", "tiny", "--max_iterations",
+                                           "1", "--imagery_every", "0",
+                                           "--logging_directory", str(tmp / "tiny")]),
+            "smoke": cli("smoke", "smg_tpu_torch.cli.smoke", ["--batch", "4"])})
+        check("Training iteration: 1 |" in outs["mesh"], "the mesh-catalog run")
+        check("Training iteration: 1 |" in outs["tiny"], "the tiny-trunk run")
+        check("smoke ok" in outs["smoke"], "cli.smoke")
         seg_losses = [float(l.split("| loss ")[1].split(" |")[0])
                       for l in outs["train_segmenter"].splitlines()
                       if l.startswith("segmenter step")]
@@ -1955,21 +2044,23 @@ def drive_perception_path(dev, kernels):
               f"segmenter loss did not fall: {seg_losses}")
         detail["segmenter_losses"] = seg_losses
 
+        arms = {"base": [], "perspective": ["--perspective"]}
+        side_by_side({
+            **{f"eval_{arm}": cli(f"eval_{arm}", "smg_tpu_torch.cli.eval_segmenter",
+                                  ["--checkpoint", ckpt, "--scenes", str(SEG_EVAL_SCENES),
+                                   "--cluttered", "--testing", *extra])
+               for arm, extra in arms.items()},
+            "learned": cli("learned", main_mod, [
+                *CLI_FLAGS, "--segmentation", "learned", "--segmenter_checkpoint", ckpt,
+                "--max_iterations", "1", "--imagery_every", "0",
+                "--logging_directory", str(tmp / "learned")])})
         evals = {}
-        for arm, extra in (("base", []), ("perspective", ["--perspective"])):
-            cli(f"eval_{arm}", "smg_tpu_torch.cli.eval_segmenter",
-                ["--checkpoint", ckpt, "--scenes", str(SEG_EVAL_SCENES), "--cluttered",
-                 "--testing", *extra])
+        for arm in arms:
             evals[arm] = _json_line(outs[f"eval_{arm}"])
             print(f"eval_segmenter {arm}: {json.dumps(evals[arm])}")
             check(evals[arm]["visible_objects"] > 0 and 0.0 <= evals[arm]["miou"] <= 1.0,
                   f"eval_segmenter {arm}")
         detail["eval"] = evals
-
-        cli("learned", main_mod, [*CLI_FLAGS, "--segmentation", "learned",
-                                  "--segmenter_checkpoint", ckpt, "--max_iterations", "1",
-                                  "--imagery_every", "0",
-                                  "--logging_directory", str(tmp / "learned")])
         check("segmenter loaded from" in outs["learned"], "the learned-mask run")
         (run_dir,) = (tmp / "learned").iterdir()
         pred = _log_rows(run_dir, "predicted-value")
@@ -1978,12 +2069,7 @@ def drive_perception_path(dev, kernels):
         check(pred.shape[0] == B_MAIN and bool((pred > -99).any()),
               "no scene acted on a valid learned mask")
         detail["learned_scenes_with_a_mask"] = int((pred > -99).sum())
-
-        cli("tiny", main_mod, [*CLI_FLAGS, "--trunk", "tiny", "--max_iterations", "1",
-                               "--imagery_every", "0", "--logging_directory", str(tmp / "tiny")])
-        check("Training iteration: 1 |" in outs["tiny"], "the tiny-trunk run")
-        cli("smoke", "smg_tpu_torch.cli.smoke", ["--batch", "4"])
-        check("smoke ok" in outs["smoke"], "cli.smoke")
+    total = sum_counts(counts.values())
     print("launches in the perception path: " + ", ".join(
         f"{name.split()[0]} {n}" for name, n in total.items()))
     for k in kernels:
@@ -2037,33 +2123,33 @@ def phase_pretrain_step(dev) -> dict:
 def drive_pretrain_path(dev, kernels):
     """python -m smg_tpu_torch.cli.pretrain_trunks (DenseNet-121, 224) for
     PRETRAIN_STEPS steps at b16 in a subprocess, its loss falling (the
-    mean of the last 5 below the first 5's, tests/test_pretrain.py:39-62);
-    the checkpoint into a fresh b32 trainer's six trunks (online and
+    mean of the last 5 below the first 5's, tests/test_pretrain.py:39-62;
+    one step's in-process timings are phase_pretrain_step's); then side by
+    side: the checkpoint into a fresh b32 trainer's six trunks (online and
     target), equal, and that trainer's update at the warm weights after
     two training steps: compare_update_modes, 'pk' no farther from float32
     than TRUTH_RATIO x 'conv' per part on the b32 batch, as on the
-    training path's random weights; then cli.main with the held flags and --pretrained_trunks for
-    two training iterations: its target trunks equal the checkpoint's and
-    its online trunks sit within one Adam step of them (the first update
-    is on the blank previous step, a zero gradient)."""
+    training path's random weights (whose run alone reports K6 against
+    its plain versions on the CPU); and cli.main with the held flags and
+    --pretrained_trunks for two training iterations: its target trunks
+    equal the checkpoint's and its online trunks sit within one Adam step
+    of them (the first update is on the blank previous step, a zero
+    gradient)."""
     import tempfile
 
     from smg_tpu_torch.train import checkpoints, loop
     from smg_tpu_torch.train.pretrain import TRUNK_PARTS
     from smg_tpu_torch.train.prod_config import make_prod_loop_cfg, make_prod_trainer
 
-    total = {name: 0 for name in launch_counters()}
-    detail = {"step": phase_pretrain_step(dev)}
+    detail, counts = {}, {}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="smg_pretrain_") as td:
         tmp = Path(td)
         ckpt = str(tmp / "trunk.pt")
-        out, counts, detail["pretrain_seconds"] = run_cli(
+        out, counts["pretrain"], detail["pretrain_seconds"] = run_cli(
             "smg_tpu_torch.cli.pretrain_trunks",
             ["--steps", str(PRETRAIN_STEPS), "--batch_size", str(PRETRAIN_BATCH),
              "--out", ckpt], tmp, "pretrain")
-        for name, c in counts.items():
-            total[name] += c
         res = _json_line(out)
         losses, step_ms = res["losses"], res["step_ms"]
         first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
@@ -2073,51 +2159,56 @@ def drive_pretrain_path(dev, kernels):
         check(all(math.isfinite(x) for x in losses), "pretrain: non-finite loss")
         check(last < first, f"pretrain: the loss did not fall ({first:.4f} -> {last:.4f})")
         detail.update(losses=losses, step_ms=step_ms, first5=first, last5=last)
-
         pre = {k[len("trunk."):]: v for k, v in checkpoints.load_params(ckpt).items()
                if k.startswith("trunk.")}
-        trainer = make_prod_trainer(B_MAIN, device=dev, fast_train_conv2="pk")
-        cfg = make_prod_loop_cfg(B_MAIN, is_testing=False)
-        state = loop.init_loop(SEED + 1, trainer, cfg)
-        checkpoints.load_pretrained(trainer, ckpt)
-        for net in (trainer.model, trainer.target):
-            for part in TRUNK_PARTS:
-                got = _trunk_state(net, part)
-                check(all(torch.equal(got[k], pre[k]) for k in pre),
-                      f"load_pretrained: {part} differs from the checkpoint")
-        for _ in range(2):
-            state, _ = loop.train_step(trainer, cfg, state)
-        detail["warm_update_modes"] = compare_update_modes(trainer, state, "warm weights")
-        del trainer, state
-        torch.cuda.empty_cache()
 
-        run_out, counts, detail["warm_cli_seconds"] = run_cli(
-            "smg_tpu_torch.cli.main",
-            [*CLI_FLAGS, "--pretrained_trunks", ckpt, "--max_iterations", "2",
-             "--imagery_every", "0", "--logging_directory", str(tmp / "warm")], tmp, "warm")
-        for name, c in counts.items():
-            total[name] += c
-        check(f"pretrained trunks loaded from: {ckpt}" in run_out, "the warm run")
-        (run_dir,) = (tmp / "warm").iterdir()
-        saved = torch.load(run_dir / "models" / "ckpt" / "2.pt", map_location="cpu",
-                           weights_only=True)
-        lr = 1e-4
-        steps = {}
-        for part in TRUNK_PARTS:
-            for k, v in pre.items():
-                t = saved["target"][f"{part}.{k}"]
-                check(torch.equal(t, v), f"warm run: target {part}.{k} is not the checkpoint's")
-                if "running" in k or "num_batches" in k:
-                    continue
-                o = saved["model"][f"{part}.{k}"]
-                steps[part] = max(steps.get(part, 0.0), float((o - v).abs().max()))
-        print(f"warm run: target trunks equal the checkpoint's; online trunks' largest "
-              f"move after one Adam step: {steps}")
-        # A style absent from the first step's experience leaves its trunk.
-        check(max(steps.values()) > 0 and all(d <= 1.001 * lr for d in steps.values()),
-              f"warm run: online trunks moved {steps}, want at most lr, one of them > 0")
-        detail["online_move"] = steps
+        def warm_update():
+            trainer = make_prod_trainer(B_MAIN, device=dev, fast_train_conv2="pk")
+            cfg = make_prod_loop_cfg(B_MAIN, is_testing=False)
+            state = loop.init_loop(SEED + 1, trainer, cfg)
+            checkpoints.load_pretrained(trainer, ckpt)
+            for net in (trainer.model, trainer.target):
+                for part in TRUNK_PARTS:
+                    got = _trunk_state(net, part)
+                    check(all(torch.equal(got[k], pre[k]) for k in pre),
+                          f"load_pretrained: {part} differs from the checkpoint")
+            for _ in range(2):
+                state, _ = loop.train_step(trainer, cfg, state)
+            with wall_clock("compare_update_modes"):
+                detail["warm_update_modes"] = compare_update_modes(
+                    trainer, state, "warm weights", cpu_plain=False)
+
+        def warm_cli():
+            run_out, counts["warm"], detail["warm_cli_seconds"] = run_cli(
+                "smg_tpu_torch.cli.main",
+                [*CLI_FLAGS, "--pretrained_trunks", ckpt, "--max_iterations", "2",
+                 "--imagery_every", "0", "--logging_directory", str(tmp / "warm")], tmp, "warm")
+            check(f"pretrained trunks loaded from: {ckpt}" in run_out, "the warm run")
+            (run_dir,) = (tmp / "warm").iterdir()
+            saved = torch.load(run_dir / "models" / "ckpt" / "2.pt", map_location="cpu",
+                               weights_only=True)
+            lr = 1e-4
+            steps = {}
+            for part in TRUNK_PARTS:
+                for k, v in pre.items():
+                    t = saved["target"][f"{part}.{k}"]
+                    check(torch.equal(t, v),
+                          f"warm run: target {part}.{k} is not the checkpoint's")
+                    if "running" in k or "num_batches" in k:
+                        continue
+                    o = saved["model"][f"{part}.{k}"]
+                    steps[part] = max(steps.get(part, 0.0), float((o - v).abs().max()))
+            print(f"warm run: target trunks equal the checkpoint's; online trunks' largest "
+                  f"move after one Adam step: {steps}")
+            # A style absent from the first step's experience leaves its trunk.
+            check(max(steps.values()) > 0 and all(d <= 1.001 * lr for d in steps.values()),
+                  f"warm run: online trunks moved {steps}, want at most lr, one of them > 0")
+            detail["online_move"] = steps
+
+        side_by_side({"warm_update": warm_update, "warm_cli": warm_cli})
+    torch.cuda.empty_cache()
     detail["seconds"] = time.perf_counter() - t0
+    total = sum_counts(counts.values())
     print("launches in the pretraining path: " + ", ".join(
         f"{name.split()[0]} {n}" for name, n in total.items()))
     for k in kernels:
@@ -2134,10 +2225,11 @@ def _fork_state(state):
     return dataclasses.replace(state, generator=gen)
 
 
-def drive_vmap_path(dev, kernels):
-    """The per-scene executor: from one init_loop state at b32 (the
-    production testing config), one act step with executor="vmap" (the
-    dense per-scene contacts, no K1) and one with "batched" (K1); their
+def drive_vmap_path(kernels, trainer, cfg, state):
+    """The per-scene executor: from the act path's trainer and last state
+    (b32, the production testing config), one act step with
+    executor="vmap" (the dense per-scene contacts, no K1) and one with
+    "batched" (K1); their
     times and every scene's success, the agreement reported, not gated
     (K1 sums in another order, and 755 steps of contact are chaotic). Then
     one physics step's contact force of each formulation from the same
@@ -2146,15 +2238,10 @@ def drive_vmap_path(dev, kernels):
     from smg_tpu_torch.physics import stepper
     from smg_tpu_torch.physics.state import Gripper
     from smg_tpu_torch.train import loop
-    from smg_tpu_torch.train.prod_config import make_prod_loop_cfg, make_prod_trainer
 
-    trainer = make_prod_trainer(B_MAIN, device=dev)
-    cfg = make_prod_loop_cfg(B_MAIN, is_testing=True)
+    check(cfg.env.is_testing and cfg.batch_size == B_MAIN, "config")
     zero_counts()
-    t0 = time.perf_counter()
-    state = loop.init_loop(SEED + 2, trainer, cfg)
-    torch.cuda.synchronize()
-    detail = {"init_s": time.perf_counter() - t0}
+    detail = {}
     per_step = {}
     succ = {}
     for ex in ("vmap", "batched"):
@@ -2278,9 +2365,10 @@ def drive_sharded_path(kernels):
     with tempfile.TemporaryDirectory(prefix="smg_sharded_") as td:
         out = Path(td) / "sharded.json"
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", SHARDED_RUNNER, str(out)],
-                              capture_output=True, text=True, timeout=600, env=env,
-                              cwd=Path(__file__).resolve().parent)
+        with wall_clock("child"):
+            proc = subprocess.run([sys.executable, "-c", SHARDED_RUNNER, str(out)],
+                                  capture_output=True, text=True, timeout=600, env=env,
+                                  cwd=Path(__file__).resolve().parent)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             print(proc.stdout[-4000:] + proc.stderr[-4000:])
@@ -2450,7 +2538,8 @@ def drive_rotations_path(dev, kernels):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     one.model.load_state_dict(trainer.model.state_dict())
-    res = {"init_s": init_s, **rotation_checks(trainer, one, state)}
+    with wall_clock("rotation_checks"):
+        res = {"init_s": init_s, **rotation_checks(trainer, one, state)}
     del one
     torch.cuda.empty_cache()
 
@@ -2534,6 +2623,102 @@ def update_modes_on_snapshot(dev, path: str) -> dict:
     return compare_update_modes(trainer, state)
 
 
+def _kernel_phase(fn):
+    """A kernel phase as a step of main: its kernel rows go to the table."""
+    def step(ctx):
+        rows = fn(ctx["dev"])
+        ctx["kernels"].extend(rows if isinstance(rows, list) else [rows] if rows else [])
+    step.phase = fn
+    return step
+
+
+def _act(ctx):
+    trainer, cfg, state, step_seconds = drive_act_path(ctx["dev"], ctx["kernels"])
+    if ctx["profile"]:
+        profile_act_step(trainer, cfg, state, step_seconds, ctx["out"])
+    ctx["act"] = trainer, cfg, state
+
+
+def _vmap(ctx):
+    drive_vmap_path(ctx["kernels"], *ctx.pop("act"))
+
+
+def _parity(ctx):
+    runs, parity_failed = drive_decision_parity(ctx["dev"], ctx["kernels"])
+    with wall_clock("trunk_passes"):
+        phase_trunk_passes(runs)
+    check(not parity_failed,
+          f"decision parity failed for (input, backend, style) {parity_failed}")
+
+
+def _detail(key, fn):
+    """A measurement phase as a step of main: fn(dev) to DETAIL[key]."""
+    def step(ctx):
+        DETAIL[key] = fn(ctx["dev"])
+    return step
+
+
+# What main runs, in order: the kernel phases (each kernel against its
+# plain version), then the nine paths, each driven with the launch counts
+# set to 0 just before it and read just after (a subprocess's in it), and
+# the in-process timings of the perception and pretraining paths.
+PHASES = (
+    ("phase_contact", _kernel_phase(phase_contact)),
+    ("phase_dense_layer", _kernel_phase(phase_dense_layer)),
+    ("phase_transition", _kernel_phase(phase_transition)),
+    ("phase_stem", _kernel_phase(phase_stem)),
+    ("phase_conv2", _kernel_phase(phase_conv2)),
+    ("phase_dense_layer_train", _kernel_phase(phase_dense_layer_train)),
+    ("phase_dense_block", _kernel_phase(phase_dense_block)),
+    ("phase_dense_block_train", _kernel_phase(phase_dense_block_train)),
+    ("phase_index_limits", _kernel_phase(phase_index_limits)),
+    ("act", _act),
+    ("vmap", _vmap),
+    ("train", lambda ctx: drive_train_path(ctx["dev"], ctx["kernels"])),
+    ("parity", _parity),
+    ("rotations", lambda ctx: drive_rotations_path(ctx["dev"], ctx["kernels"])),
+    ("phase_segmenter", _detail("segmenter", phase_segmenter)),
+    ("phase_pretrain_step", _detail("pretrain_step", phase_pretrain_step)),
+    ("cli", lambda ctx: drive_cli_path(ctx["kernels"])),
+    ("perception", lambda ctx: drive_perception_path(ctx["kernels"])),
+    ("pretrain", lambda ctx: drive_pretrain_path(ctx["dev"], ctx["kernels"])),
+    ("sharded", lambda ctx: drive_sharded_path(ctx["kernels"])),
+)
+PATHS = ("act", "train", "parity", "cli", "perception", "pretrain", "vmap", "sharded",
+         "rotations")
+# Paths whose device work runs in subprocesses and in no other in-process
+# phase's time or counts: main runs them side by side, one thread each (the
+# pretraining path's in-process update sees their load). Their subprocess
+# step times are not one run's alone.
+SIDE_BY_SIDE = ("cli", "perception", "pretrain", "sharded")
+
+
+def run_phases(ctx) -> None:
+    """PHASES in order, SIDE_BY_SIDE's run together; each phase's wall
+    seconds to SECONDS (those run together overlap: their group's own wall
+    time is under the names joined by "+")."""
+    def run(name, step):
+        _PHASE.name = name
+        t0 = time.perf_counter()
+        try:
+            step(ctx)
+            torch.cuda.synchronize()
+        finally:
+            SECONDS[name] = time.perf_counter() - t0
+            _PHASE.name = ""
+        print(f"phase {name}: {SECONDS[name]:.1f} s", flush=True)
+
+    group = [(n, st) for n, st in PHASES if n in SIDE_BY_SIDE]
+    for name, step in PHASES:
+        if name not in SIDE_BY_SIDE:
+            run(name, step)
+        elif name == group[0][0]:
+            t0 = time.perf_counter()
+            side_by_side({n: (lambda n=n, st=st: run(n, st)) for n, st in group})
+            SECONDS["+".join(n for n, _ in group)] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -2556,7 +2741,7 @@ def main(argv):
 
     t0 = time.perf_counter()
     _build.library()
-    build_s = time.perf_counter() - t0
+    build_s = SECONDS["build"] = time.perf_counter() - t0
     print(f"kernel build: {build_s:.2f} s (nvcc: "
           f"{_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     DETAIL["build_seconds"] = build_s
@@ -2566,45 +2751,25 @@ def main(argv):
         print(json.dumps({"update_modes_snapshot": res, "card": card}, default=str))
         return
 
-    kernels = [phase_contact(dev), phase_dense_layer(dev), phase_transition(dev),
-               phase_stem(dev), phase_conv2(dev), *phase_dense_layer_train(dev),
-               phase_dense_block(dev)]
-    phase_dense_block_train(dev)
-    phase_index_limits(dev)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-    trainer, cfg, state, step_seconds = drive_act_path(dev, kernels)
-    if args.profile:
-        profile_act_step(trainer, cfg, state, step_seconds, args.out)
-    del trainer, state
-    drive_train_path(dev, kernels)
-    runs, parity_failed = drive_decision_parity(dev, kernels)
-    phase_trunk_passes(runs)
-    check(not parity_failed,
-          f"decision parity failed for (input, backend, style) {parity_failed}")
-    del runs
-    torch.cuda.empty_cache()
-    drive_cli_path(kernels)
-    drive_perception_path(dev, kernels)
-    drive_pretrain_path(dev, kernels)
-    torch.cuda.empty_cache()
-    drive_vmap_path(dev, kernels)
-    torch.cuda.empty_cache()
-    drive_sharded_path(kernels)
-    drive_rotations_path(dev, kernels)
+    ctx = {"dev": dev, "kernels": [], "profile": args.profile, "out": args.out}
+    run_phases(ctx)
+    kernels = ctx["kernels"]
 
+    SECONDS["total"] = time.perf_counter() - T_START
     DETAIL["card"] = card
     DETAIL["kernels"] = kernels
+    DETAIL["phase_seconds"] = SECONDS
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(DETAIL, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_b1024",
             "bound_ms_b1024")
-    paths = ("act", "train", "parity", "cli", "perception", "pretrain", "vmap", "sharded",
-             "rotations")
+    print(json.dumps({"phase_seconds": SECONDS}))
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in keys if k in kern},
-         "launches_by_path": {p: kern[f"launches_{p}"] for p in paths}}
+         "launches_by_path": {p: kern[f"launches_{p}"] for p in PATHS}}
         for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,14 @@
 #
 # Usage: bash run_port_seeds.sh OUT [ARMS] [SEEDS] [TRAIN_EP] [TEST_EP] [PRETRAIN_STEPS]
 #
-# ARMS is a list of "cold" and "warm" (default both), SEEDS a list of seeds
-# (default "1 2"); the episode and step counts default to the held
-# protocol's 800 / 300 / 1000. CHECK_SEEDS (default: every seed) lists the
-# seeds whose runs go on to run_port_checks.sh on their snapshots. Each run
-# writes OUT/<arm>_s<seed>/ and its stdout to OUT/<arm>_s<seed>.log. The
-# script exits nonzero if any run did.
+# ARMS is a list of "cold" and "warm" (default both), each run for every
+# seed of SEEDS (default "1 2"), or of "arm:seed" words, each one run
+# (SEEDS is then ignored for it: "warm:0 warm:2 cold:0"); the episode and
+# step counts default to the held protocol's 800 / 300 / 1000. CHECK_SEEDS
+# (default: every seed) lists the seeds whose runs go on to
+# run_port_checks.sh on their snapshots. Each run writes OUT/<arm>_s<seed>/
+# and its stdout to OUT/<arm>_s<seed>.log. The script exits nonzero if any
+# run did.
 set -u
 cd "$(dirname "$0")"
 
@@ -33,12 +35,15 @@ assert native.load_library() is not None, 'native/ did not build'
 " || exit 1
 
 pids=()
-for seed in $SEEDS; do
-  checks=0
-  for c in ${CHECK_SEEDS:-$SEEDS}; do
-    [ "$c" = "$seed" ] && checks=1
-  done
-  for arm in $ARMS; do
+for word in $ARMS; do
+  arm=${word%%:*}
+  seeds=$SEEDS
+  [ "$word" != "$arm" ] && seeds=${word#*:}
+  for seed in $seeds; do
+    checks=0
+    for c in ${CHECK_SEEDS:-$seed}; do
+      [ "$c" = "$seed" ] && checks=1
+    done
     export CHECKS=$checks
     case "$arm" in
       cold) bash run_port_b32.sh "$OUT/cold_s$seed" "$TRAIN_EP" "$TEST_EP" "$seed" \
@@ -48,7 +53,7 @@ for seed in $SEEDS; do
       *) echo "unknown arm $arm" >&2; exit 2 ;;
     esac
     pids+=("$!")
-    echo "started $arm seed $seed (pid $!)"
+    echo "started $arm seed $seed (pid $!, checks $CHECKS)"
   done
 done
 rc=0
