@@ -58,6 +58,7 @@ import math
 import os
 import sys
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -65,7 +66,7 @@ from torch import nn
 from smg_tpu_torch.envs import smg_env
 from smg_tpu_torch.models.affordance import (AffordanceNet, ModelConfig,
                                              preprocess_depth)
-from smg_tpu_torch.models.densenet import BLOCK_CONFIG
+from smg_tpu_torch.models.densenet import BLOCK_CONFIG, DenseNetTrunk, bn_eval, no_tf32
 from smg_tpu_torch.models.fast_trunk import BACKENDS
 from smg_tpu_torch.train import checkpoints
 
@@ -98,6 +99,65 @@ def alive_stats_(model: nn.Module, gen: torch.Generator) -> None:
                 for name, (lo, hi) in ALIVE_RANGES.items():
                     t = getattr(m, name)
                     t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
+
+
+# The stem's statistic on a trained cold snapshot (cold seed 1's grasp
+# trunk, stage_parity.py on an H100): conv0 taps of mean |w| 0.068; norm0's
+# running variances from 2.6e-3 to 6.7e-2 (minimum to 90th percentile),
+# block 1's norm1 from 1.1e-2 (the fold a up to 9.6 on a stem channel).
+SNAPSHOT_TAP_STD = 0.068
+SNAPSHOT_VARS = {"norm0": (2.6e-3, 6.7e-2), "norm1": (1.1e-2, 1.0)}
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    _, e = torch.frexp(v)
+    return torch.where(v == 0, torch.zeros_like(v), torch.ldexp(torch.ones_like(v), e - 8))
+
+
+def snapshot_stem_(model: nn.Module, x: torch.Tensor, seed: int, gray_tap: bool = True) -> None:
+    """Give every trunk of `model` the trained snapshot's stem statistic,
+    drawn from a numpy seed, on the inputs x (N, S, S, 3):
+
+    - conv0 reads input channel 0 through taps v exact in bf16 (normal,
+      SNAPSHOT_TAP_STD); with gray_tap, channel 1 adds 0.75 bf16 steps of
+      each tap (also exact), so the module forward's three-channel conv is
+      exact while the fast path's gray tap, the taps summed over the input
+      channels and rounded once (fast_trunk._build_operands), rounds every
+      tap up by a quarter step: on the flat background of a depth map that
+      is a bias of the channel. Without gray_tap both forms are exact;
+    - norm0 and block 1's norm1 (on the stem's channels) at running
+      variances log-uniform over SNAPSHOT_VARS, centred on x's means (scale
+      1, bias 0), so that they amplify what their input carries.
+    The model's float32 and bf16 twins take the same draw."""
+    rng = np.random.RandomState(seed)
+    dev = x.device
+
+    def loguniform(lo, hi, n):
+        v = np.exp(rng.uniform(np.log(lo), np.log(hi), n)).astype(np.float32)
+        return torch.as_tensor(v, device=dev)
+
+    with torch.no_grad(), no_tf32():
+        for trunk in (m for m in model.modules() if isinstance(m, DenseNetTrunk)):
+            w = trunk.conv0.weight
+            v = torch.as_tensor(rng.normal(0.0, SNAPSHOT_TAP_STD, (w.shape[0],) + w.shape[2:])
+                                .astype(np.float32), device=dev).to(torch.bfloat16).float()
+            w.zero_()
+            w[:, 0] = v
+            if gray_tap:
+                w[:, 1] = 0.75 * bf16_ulp(v)
+            y = F.conv2d(x.float().permute(0, 3, 1, 2), w, stride=2, padding=3)
+            n0 = trunk.norm0
+            n0.running_mean.copy_(y.mean(dim=(0, 2, 3)))
+            n0.running_var.copy_(loguniform(*SNAPSHOT_VARS["norm0"], w.shape[0]))
+            n0.weight.fill_(1.0)
+            n0.bias.zero_()
+            stem = F.max_pool2d(torch.relu(bn_eval(y, n0, torch.float32)), 3, 2, padding=1)
+            c = stem.shape[1]
+            for layer in trunk.denseblock1.children():
+                n1 = layer.norm1
+                n1.running_mean[:c] = stem.mean(dim=(0, 2, 3))
+                n1.running_var[:c] = loguniform(*SNAPSHOT_VARS["norm1"], c)
 
 
 def carry_head_kernel(w: torch.Tensor, feature_hw: int) -> torch.Tensor:

@@ -173,14 +173,16 @@ def _bottleneck(buf: torch.Tensor, c_in: int, a1, b1, w1) -> torch.Tensor:
     return h1.to(dt).reshape(buf.shape[:3] + (-1,))
 
 
-def _dense_block_pk(buf: torch.Tensor, layers) -> None:
+def _dense_block_pk(buf: torch.Tensor, layers, tap=None, name: str = "") -> None:
     """The `xla_pk` dense block, in place: per layer the bottleneck, then K5
     writes the 32 channels at the layer's offset (the merge variant where
     the TPU's width allowed it, _dense_block_pk_merge, fast_trunk.py:204-236;
     the plain variant elsewhere, :106-115: one kernel here)."""
-    for c_in, a1, b1, w1, a2, b2, w2 in layers:
+    for l, (c_in, a1, b1, w1, a2, b2, w2) in enumerate(layers):
         h1 = _bottleneck(buf, c_in, a1, b1, w1)
         k5.conv2_bn_relu(h1, a2, b2, w2, out=buf[..., c_in:c_in + GROWTH_RATE])
+        if tap:
+            tap(f"{name}.layer{l + 1}", buf[..., c_in:c_in + GROWTH_RATE])
 
 
 def _stem_xla(x: torch.Tensor, ops: dict) -> torch.Tensor:
@@ -193,13 +195,17 @@ def _stem_xla(x: torch.Tensor, ops: dict) -> torch.Tensor:
     return F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
 
 
-def _trunk_pallas(trunk: DenseNetTrunk, x: torch.Tensor):
+def _trunk_pallas(trunk: DenseNetTrunk, x: torch.Tensor, tap=None):
     """The `pallas` backend (fast_trunk.py:382-401): the XLA-form stem, then
     one K7 call per dense block; blocks 1-3 end in the transition
-    epilogue, written into the next block's buffer, block 4 in norm5."""
+    epilogue, written into the next block's buffer, block 4 in norm5. A
+    block's own output stays inside K7: `tap` sees the stem, the
+    transitions and norm5."""
     dt = trunk.dtype
     cfg = trunk.block_config
     y = _stem_xla(x, trunk_operands(trunk))
+    if tap:
+        tap("stem", y)
     N, H, W, C = y.shape
     buf = torch.empty((N, H, W, C + GROWTH_RATE * cfg[0]), dtype=dt, device=x.device)
     buf[..., :C] = y
@@ -214,11 +220,15 @@ def _trunk_pallas(trunk: DenseNetTrunk, x: torch.Tensor):
         res = k7.dense_block_apply(buf, packed, ep, epilogue, out=out)
         if out is not None:
             buf = nxt
+            if tap:
+                tap(f"transition{i + 1}", out)
+    if tap:
+        tap("norm5", res)
     return res
 
 
 def trunk_features_eval(trunk: DenseNetTrunk, x: torch.Tensor,
-                        backend: str = "xla_fl") -> torch.Tensor:
+                        backend: str = "xla_fl", tap=None) -> torch.Tensor:
     """(N, S, S, 3) preprocessed input -> (N, S/32, S/32, C_final).
 
     backend (the JAX package's names, fast_trunk.py:337-401):
@@ -229,6 +239,11 @@ def trunk_features_eval(trunk: DenseNetTrunk, x: torch.Tensor,
                 transition or norm5 epilogue.
     norm5 stays plain on the xla backends. The JAX-only lowerings ("xla",
     "xla_conv", "xla_s2d") have no kernel and are not ported.
+
+    tap(name, tensor), when given, sees each stage's output as it is made,
+    NHWC in the working dtype: "stem" (block 1's input), "block{i}" and
+    its layers' new channels "block{i}.layer{l}", "transition{i}",
+    "norm5" (stage_parity.py reads them; `pallas` shows no block or layer).
     """
     if not isinstance(trunk, DenseNetTrunk):
         raise TypeError("the eval backends run DenseNet-121 trunks only; the tiny "
@@ -236,7 +251,7 @@ def trunk_features_eval(trunk: DenseNetTrunk, x: torch.Tensor,
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend == "pallas":
-        return _trunk_pallas(trunk, x)
+        return _trunk_pallas(trunk, x, tap)
     ops = trunk_operands(trunk)
     dt = trunk.dtype
     y = _stem_conv(x, ops["kg"])
@@ -246,13 +261,20 @@ def trunk_features_eval(trunk: DenseNetTrunk, x: torch.Tensor,
     buf = torch.empty((N, H, W, C + GROWTH_RATE * cfg[0]), dtype=dt,
                       device=x.device)
     k4.bn_relu_maxpool(y, *ops["stem"], out=buf[..., :C])
+    if tap:
+        tap("stem", buf[..., :C])
     for i, layers in enumerate(ops["blocks"]):
+        name = f"block{i + 1}"
         if backend == "xla_fl":
-            for c_in, a1, b1, w1, a2, b2, w2 in layers:
+            for l, (c_in, a1, b1, w1, a2, b2, w2) in enumerate(layers):
                 k2.dense_layer(buf, c_in, a1, b1, w1, a2, b2, w2)
+                if tap:
+                    tap(f"{name}.layer{l + 1}", buf[..., c_in:c_in + GROWTH_RATE])
         else:
             with _f32_reduction():
-                _dense_block_pk(buf, layers)
+                _dense_block_pk(buf, layers, tap, name)
+        if tap:
+            tap(name, buf)
         if i < len(cfg) - 1:
             a, b, wt = ops["transitions"][i]
             c_out = wt.shape[1]
@@ -261,21 +283,34 @@ def trunk_features_eval(trunk: DenseNetTrunk, x: torch.Tensor,
                               dtype=dt, device=x.device)
             k3.transition(buf, a, b, wt, out=nxt[..., :c_out])
             buf = nxt
+            if tap:
+                tap(f"transition{i + 1}", buf[..., :c_out])
     a5, b5 = ops["norm5"]
-    return (buf.float() * a5 + b5).to(dt)
+    out = (buf.float() * a5 + b5).to(dt)
+    if tap:
+        tap("norm5", out)
+    return out
 
 
-def head_eval(head, x: torch.Tensor, num_out: int) -> torch.Tensor:
+def head_eval(head, x: torch.Tensor, num_out: int, tap=None) -> torch.Tensor:
     """AffordanceHead eval forward (fast_trunk.py:966-983):
     (B, h, w, C) -> (B, num_out) f32. f32 accumulation of the working-dtype
-    operands (an f32 product of bf16 values is exact)."""
+    operands (an f32 product of bf16 values is exact). tap as in
+    trunk_features_eval: "head.norm0" (after its ReLU), "head.conv0",
+    "head.norm1" (after its ReLU), (B, h, w, c)."""
     dt = x.dtype
     a0, b0 = fold_bn(head.norm0)
     h = torch.relu(x.float() * a0 + b0).to(dt)
+    if tap:
+        tap("head.norm0", h)
     k0 = head.conv0.weight.detach().reshape(head.conv0.out_channels, -1)
     h = h.reshape(-1, k0.shape[1]).float() @ k0.t().to(dt).float()
+    if tap:
+        tap("head.conv0", h.reshape(x.shape[:3] + (-1,)))
     a1, b1 = fold_bn(head.norm1)
     h = torch.relu(h * a1 + b1).to(dt)
+    if tap:
+        tap("head.norm1", h.reshape(x.shape[:3] + (-1,)))
     k1 = head.conv1.weight.detach().permute(2, 3, 1, 0).reshape(-1, num_out)
     return h.reshape(x.shape[0], -1).float() @ k1.to(dt).float()
 
@@ -306,15 +341,17 @@ def pair_features(feats: torch.Tensor, B: int, R: int) -> torch.Tensor:
 
 
 def score_eval(trunk, head, scene_img: torch.Tensor, mask_imgs: torch.Tensor,
-               num_out: int, backend: str = "xla_fl") -> torch.Tensor:
+               num_out: int, backend: str = "xla_fl", tap=None) -> torch.Tensor:
     """Eval AffordanceNet.score (fast_trunk.py:986-1014): one trunk call
     over the scene + masked streams, scene features broadcast across the
     M object slots, head on the concatenated features. Scenes (B, S, S, 3)
     -> (B, M, num_out); R rotations of each scene (B, R, S, S, 3) -> (B, M,
-    R, num_out), each mask stream computed once for all R."""
+    R, num_out), each mask stream computed once for all R. tap: see
+    trunk_features_eval and head_eval."""
     x, B, R = trunk_input(scene_img, mask_imgs)
-    out = head_eval(head, pair_features(trunk_features_eval(trunk, x, backend), B, R),
-                    num_out).reshape(B, -1, R, num_out)
+    feats = trunk_features_eval(trunk, x, backend, tap)
+    out = head_eval(head, pair_features(feats, B, R), num_out,
+                    tap).reshape(B, -1, R, num_out)
     return out if scene_img.dim() == 5 else out[:, :, 0]
 
 

@@ -29,7 +29,8 @@
   (trainer.py:256-277).
 
 With ModelConfig.trunk = "tiny", eval scoring goes through the module
-forward (AffordanceNet.score) and the update through fast_trunk's tiny
+forward (AffordanceNet.score; TrainConfig.fast_eval "auto", or "off" for
+any trunk) and the update through fast_trunk's tiny
 train forward, as the JAX trainer's fast paths are DenseNet-only
 (trainer.py:230-253, :505-530); the eval backends and fast_train_conv2
 "pk" raise for it.
@@ -80,6 +81,13 @@ class TrainConfig:
     target_update_freq: int = 10         # main.py:450
     is_ets: bool = False
     scene_chunk: int = 4
+    # The eval forward of scoring and labels (trainer.py:64-69, :505-515):
+    # "on" the fast trunk (fast_trunk.score_eval over the kernels), "off"
+    # the module forward (AffordanceNet.score), "auto" the fast trunk for
+    # DenseNet-121 and the module forward for the tiny trunk. JAX resolves
+    # "auto" to the module forward off the TPU as well; the port runs the
+    # kernels' plain versions on the CPU.
+    fast_eval: str = "auto"
     # The update's dense layers: 'conv' is autograd of the conv form (the
     # JAX default); 'pk' runs the K6 kernels forward and backward.
     fast_train_conv2: str = "conv"
@@ -144,12 +152,22 @@ class Trainer:
     def _prep(self, depth):
         return aff.preprocess_depth(depth, self.cfg.model)
 
+    @property
+    def use_fast_eval(self) -> bool:
+        """TrainConfig.fast_eval resolved (trainer.py:505-515)."""
+        if self.cfg.fast_eval not in ("on", "off", "auto"):
+            raise ValueError(f"fast_eval must be 'on', 'off' or 'auto', "
+                             f"got {self.cfg.fast_eval!r}")
+        if self.cfg.fast_eval == "auto":
+            return self.cfg.model.trunk == "densenet121"
+        return self.cfg.fast_eval == "on"
+
     def _score_eval(self, net: AffordanceNet, scene_img, mask_imgs, style: int):
-        """Eval scores (B, M, num_out): the kernels' path for DenseNet-121,
-        the module forward for the tiny trunk."""
-        if self.cfg.model.trunk == "tiny":
-            return net.score(scene_img, mask_imgs, style)
-        return net.score_eval(scene_img, mask_imgs, style)
+        """Eval scores (B, M, num_out): the kernels' path (score_eval) or the
+        module forward (score), as TrainConfig.fast_eval resolves."""
+        if self.use_fast_eval:
+            return net.score_eval(scene_img, mask_imgs, style)
+        return net.score(scene_img, mask_imgs, style)
 
     def _postprocess(self, out: torch.Tensor) -> torch.Tensor:
         """(..., num_out) -> (..., 1): P(class 0) for reactive, raw Q

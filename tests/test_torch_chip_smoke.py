@@ -78,6 +78,43 @@ def test_shapes_and_tolerances():
     assert (cs.FORCE_TOL, cs.ROT0_BOUND, cs.SCORE_BOUND) == (1e-5, 1e-3, 0.05)
 
 
+def test_snapshot_stem_case():
+    """The decision-parity path's case under a trained snapshot's stem
+    statistic: at 224, style 0 (the style whose parity failed on cold
+    seed 1's snapshot), all three backends, bound the strict rule and 2 x
+    the bf16 module forward's ratio (decision parity's witness factor); the
+    construction is decision_parity.snapshot_stem_, as
+    tests/test_torch_eval_stages.py builds it."""
+    import inspect
+
+    from smg_tpu_torch.cli import decision_parity as dp
+
+    assert cs.SNAPSHOT_CASE == (224, 0) and cs.SNAPSHOT_FACTOR == dp.WITNESS_FACTOR == 2.0
+    src = inspect.getsource(cs.drive_decision_parity)
+    assert "snapshot_stem_case(" in src
+    case = inspect.getsource(cs.snapshot_stem_case)
+    assert "dp.snapshot_stem_(m, x, SEED, gray_tap=False)" in case
+    assert "styles=(style,)" in case
+    assert dp.SNAPSHOT_VARS == {"norm0": (2.6e-3, 6.7e-2), "norm1": (1.1e-2, 1.0)}
+
+
+def test_trunk_calls_passes_every_argument():
+    """TrunkCalls (the rotations path's count of trunk images) wraps
+    fast_trunk.trunk_features_eval with its whole signature: score_eval
+    hands it a stage tap as well."""
+    from smg_tpu_torch.cli import decision_parity as dp
+    from smg_tpu_torch.models import fast_trunk
+
+    m = dp.make_model(224, 0, "cpu", (1, 1, 1, 1), dtype="float32")
+    x = torch.randn(3, 224, 224, 3, generator=torch.Generator().manual_seed(0))
+    seen = []
+    with cs.TrunkCalls() as calls:
+        fast_trunk.score_eval(m.grasp_trunk, m.grasp_head, x[:1], x[1:][None], 1,
+                              tap=lambda k, t: seen.append(k))
+    assert calls.images == [3] and "stem" in seen and "scores" not in seen
+    assert fast_trunk.trunk_features_eval is calls.orig
+
+
 def test_paths_reach_their_point():
     """The depths each path needs: a training step with delayed labels
     after the blank one, the CLI's resume after 2 iterations, 2 training

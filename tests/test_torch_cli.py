@@ -79,9 +79,7 @@ REFERENCE_CMDS = [
     "--data_parallel 4 --pretrained_trunks logs/trunk_pretrain",
 ]
 # info/config.json fields that only one package has.
-JAX_ONLY = {
-    ("train", "fast_eval"), ("train", "fast_train"), ("train", "unroll_styles"),
-}
+JAX_ONLY = {("train", "fast_train"), ("train", "unroll_styles")}
 PORT_ONLY = {("train", "model", "block_config"), ("device",)}
 
 SILHOUETTE_BOUND = 2e-3

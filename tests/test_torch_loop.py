@@ -198,8 +198,9 @@ def test_next_scenes(stepped):
 
 def test_port_imports_no_jax():
     """Every module of smg_tpu_torch (found by pkgutil.walk_packages, so a
-    new module needs no listing) and chip_smoke.py's imports, with its
-    kernel wrappers, load without jax, flax or smg_tpu."""
+    new module needs no listing), chip_smoke.py's imports, with its
+    kernel wrappers, and stage_parity.py's load without jax, flax or
+    smg_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import smg_tpu_torch\n"
@@ -209,6 +210,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "chip_smoke.launch_counters()\n"
+        "import stage_parity\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'flax', 'smg_tpu.')) or m == 'smg_tpu')\n"
         "print(len(mods), bad)\n"
