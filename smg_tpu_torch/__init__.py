@@ -33,10 +33,29 @@ train       trainer, the loop, checkpoints, trunk pretraining
 parallel    data parallelism: process groups, the sharded step, the
             multi-process CPU dryrun
 utils       CLI config, run logger, native host library (mesh fitter,
-            binary log), mesh ingest, phase timer
+            binary log), mesh ingest, phase timer, the span and counter
+            recorder
 cli         main (the experiment runner), smoke, decision_parity,
             train_segmenter, eval_segmenter, pretrain_trunks
 ops         kernel wrappers: plain PyTorch versions, launch counters
+
+Spans and counters (utils/profiling.py): the trainer, the policy and the
+environment's geometry record spans at their layer boundaries, and the
+trainer counts the trunk images it computes and those it needs:
+
+  score_scene_batch > score_scene > score_eval (style)   train/trainer.py
+  counter trunk_images (the images each call gets)  Trainer._score_eval
+  counter trunk_images_useful                       Trainer.score_scene
+  update > update.forward (style), update.backward,
+           update.adam, update.bn_stats             Trainer.update
+  select_action                                     policy/arbitrate.py
+  compute_geometry > pe, oo                         envs/smg_env.py,
+                                                    policy/action_geom.py
+
+The recorder is off unless code calls profiling.enable() (the benchmark's
+per-layer readers do, in a traced run): off, each span is one shared no-op
+context. On, it reads two host clocks at each edge and never synchronizes
+with the card.
 """
 
 __version__ = "0.1.0"

@@ -30,6 +30,7 @@ from smg_tpu_torch.policy.arbitrate import (
     ActionChoice,
 )
 from smg_tpu_torch.render import ortho
+from smg_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -134,27 +135,28 @@ def masked_scene_depth(obs: Observation) -> torch.Tensor:
 def compute_geometry(choice: ActionChoice, obs: Observation,
                      cfg: EnvConfig) -> Geometry:
     """PE + OO for the selected targets (smg_env.py:161-193)."""
-    seg = obs.seg
-    depth = obs.depth_hm
-    B, n = seg.valid.shape
-    bidx = torch.arange(B, device=depth.device)
-    g_pos, g_angle, open_d = ag.pe_grasp_geometry(
-        seg.box_corners[bidx, choice.grasp_obj.long()], depth, is_pe=cfg.is_pe)
-    num = seg.number
-    is_ets_act = choice.action == ACTION_ETS
-    slots = torch.arange(n, device=depth.device)
-    oo_valid = seg.valid & ~(
-        (is_ets_act & (num > 2))[:, None]
-        & (slots[None] == choice.grasp_obj[:, None])
-    )
-    s_pos, s_angle = ag.oo_suction_angle(
-        choice.suction_obj, seg.centers, seg.box_corners, oo_valid, depth,
-        is_oo=cfg.is_oo)
-    s_angle = torch.where(is_ets_act & (num == 2), torch.zeros_like(s_angle),
-                          s_angle)
-    return Geometry(grasp_position=g_pos, grasp_angle=g_angle,
-                    open_distance=open_d, suction_position=s_pos,
-                    suction_angle=s_angle)
+    with profiling.span("compute_geometry"):
+        seg = obs.seg
+        depth = obs.depth_hm
+        B, n = seg.valid.shape
+        bidx = torch.arange(B, device=depth.device)
+        g_pos, g_angle, open_d = ag.pe_grasp_geometry(
+            seg.box_corners[bidx, choice.grasp_obj.long()], depth, is_pe=cfg.is_pe)
+        num = seg.number
+        is_ets_act = choice.action == ACTION_ETS
+        slots = torch.arange(n, device=depth.device)
+        oo_valid = seg.valid & ~(
+            (is_ets_act & (num > 2))[:, None]
+            & (slots[None] == choice.grasp_obj[:, None])
+        )
+        s_pos, s_angle = ag.oo_suction_angle(
+            choice.suction_obj, seg.centers, seg.box_corners, oo_valid, depth,
+            is_oo=cfg.is_oo)
+        s_angle = torch.where(is_ets_act & (num == 2), torch.zeros_like(s_angle),
+                              s_angle)
+        return Geometry(grasp_position=g_pos, grasp_angle=g_angle,
+                        open_distance=open_d, suction_position=s_pos,
+                        suction_angle=s_angle)
 
 
 def execute(scenes: Scene, choice: ActionChoice, geom: Geometry,

@@ -13,6 +13,7 @@ import math
 import torch
 
 from smg_tpu_torch.core import camera as cam
+from smg_tpu_torch.utils import profiling
 
 VALUE_THRESHOLD = 0.95
 ANGLE_THRESHOLD = 45
@@ -51,28 +52,29 @@ def pe_grasp_geometry(corners_px: torch.Tensor, depth_hm: torch.Tensor,
                       is_pe: bool = True):
     """corners (B, 4, 2) -> position (B, 3), angle (B,), open distance (B,)
     (action_geom.py:69-104)."""
-    position = surface_position(_trunc_center(corners_px), depth_hm)
-    B = corners_px.shape[0]
-    if not is_pe:
-        z = torch.zeros(B, device=corners_px.device)
-        return position, z, z + 2.0
-    w = _pixel_to_world_xy(corners_px)                         # (B, 4, 2)
-    d01 = torch.linalg.norm(w[:, 0] - w[:, 1], dim=-1)
-    d12 = torch.linalg.norm(w[:, 2] - w[:, 1], dim=-1)
+    with profiling.span("pe"):
+        position = surface_position(_trunc_center(corners_px), depth_hm)
+        B = corners_px.shape[0]
+        if not is_pe:
+            z = torch.zeros(B, device=corners_px.device)
+            return position, z, z + 2.0
+        w = _pixel_to_world_xy(corners_px)                         # (B, 4, 2)
+        d01 = torch.linalg.norm(w[:, 0] - w[:, 1], dim=-1)
+        d12 = torch.linalg.norm(w[:, 2] - w[:, 1], dim=-1)
 
-    def side_angle(a, b):
-        d = a - b
-        return torch.remainder(torch.atan2(d[:, 1], d[:, 0]), math.pi)
+        def side_angle(a, b):
+            d = a - b
+            return torch.remainder(torch.atan2(d[:, 1], d[:, 0]), math.pi)
 
-    long01 = d01 > d12
-    open_dist = torch.where(
-        long01,
-        d12 * torch.clamp(d01 / torch.clamp(d12, min=1e-9), max=1.2),
-        d01 * torch.clamp(d12 / torch.clamp(d01, min=1e-9), max=1.2),
-    )
-    angle = torch.where(long01, side_angle(w[:, 0], w[:, 1]),
-                        side_angle(w[:, 2], w[:, 1]))
-    return position, angle, open_dist
+        long01 = d01 > d12
+        open_dist = torch.where(
+            long01,
+            d12 * torch.clamp(d01 / torch.clamp(d12, min=1e-9), max=1.2),
+            d01 * torch.clamp(d12 / torch.clamp(d01, min=1e-9), max=1.2),
+        )
+        angle = torch.where(long01, side_angle(w[:, 0], w[:, 1]),
+                            side_angle(w[:, 2], w[:, 1]))
+        return position, angle, open_dist
 
 
 def _bearings_deg(points_px: torch.Tensor, center_px: torch.Tensor):
@@ -125,57 +127,58 @@ def oo_suction_angle(target: torch.Tensor, centers_px: torch.Tensor,
     """Suction point (B, 3) and OO rotation (B,) radians
     (action_geom.py:168-259). target (B,), centers (B, N, 2),
     corners (B, N, 4, 2), valid (B, N), depth (B, H, W)."""
-    B, n = valid.shape
-    dev = valid.device
-    bidx = torch.arange(B, device=dev)
-    tl = target.long()
-    position = surface_position(_trunc_center(corners_px[bidx, tl]), depth_hm)
-    if not is_oo:
-        return position, torch.zeros(B, device=dev)
-    tc = centers_px[bidx, tl]                                    # (B, 2)
+    with profiling.span("oo"):
+        B, n = valid.shape
+        dev = valid.device
+        bidx = torch.arange(B, device=dev)
+        tl = target.long()
+        position = surface_position(_trunc_center(corners_px[bidx, tl]), depth_hm)
+        if not is_oo:
+            return position, torch.zeros(B, device=dev)
+        tc = centers_px[bidx, tl]                                    # (B, 2)
 
-    h_center = _sample_height(depth_hm, centers_px)
-    h_corners = _sample_height(depth_hm, corners_px).amax(dim=2)
-    heights = torch.maximum(h_center, h_corners)                 # (B, N)
-    cw = _pixel_to_world_xy(centers_px)
-    dist = torch.linalg.norm(cw - cw[bidx, tl][:, None], dim=-1)
-    dh = torch.clamp(heights - heights[bidx, tl][:, None], min=0.0)
-    w = torch.exp(-dh / torch.clamp(dist, min=0.001))
+        h_center = _sample_height(depth_hm, centers_px)
+        h_corners = _sample_height(depth_hm, corners_px).amax(dim=2)
+        heights = torch.maximum(h_center, h_corners)                 # (B, N)
+        cw = _pixel_to_world_xy(centers_px)
+        dist = torch.linalg.norm(cw - cw[bidx, tl][:, None], dim=-1)
+        dh = torch.clamp(heights - heights[bidx, tl][:, None], min=0.0)
+        w = torch.exp(-dh / torch.clamp(dist, min=0.001))
 
-    bear = _bearings_deg(corners_px, tc[:, None, None, :])      # (B, N, 4)
-    diff = torch.abs(bear[..., :, None] - bear[..., None, :])
-    circ = torch.minimum(diff, 360.0 - diff)
-    pair_flat = torch.argmax(circ.reshape(B, n, 16), dim=2)
-    b_k = bear.gather(2, (pair_flat // 4)[..., None])[..., 0]
-    b_l = bear.gather(2, (pair_flat % 4)[..., None])[..., 0]
-    lo, hi = torch.minimum(b_k, b_l), torch.maximum(b_k, b_l)
-    lo_i = lo.to(torch.int32)[..., None]
-    hi_i = hi.to(torch.int32)[..., None]
-    bins = torch.arange(360, device=dev)
-    narrow = ((hi - lo) <= 180.0)[..., None]
-    cover = torch.where(narrow, (bins >= lo_i) & (bins < hi_i),
-                        (bins < lo_i) | (bins >= hi_i))          # (B, N, 360)
-    slots = torch.arange(n, device=dev)
-    occluder = valid & (slots[None] != target[:, None]) & (w < 1.0 - FREE_EPS)
+        bear = _bearings_deg(corners_px, tc[:, None, None, :])      # (B, N, 4)
+        diff = torch.abs(bear[..., :, None] - bear[..., None, :])
+        circ = torch.minimum(diff, 360.0 - diff)
+        pair_flat = torch.argmax(circ.reshape(B, n, 16), dim=2)
+        b_k = bear.gather(2, (pair_flat // 4)[..., None])[..., 0]
+        b_l = bear.gather(2, (pair_flat % 4)[..., None])[..., 0]
+        lo, hi = torch.minimum(b_k, b_l), torch.maximum(b_k, b_l)
+        lo_i = lo.to(torch.int32)[..., None]
+        hi_i = hi.to(torch.int32)[..., None]
+        bins = torch.arange(360, device=dev)
+        narrow = ((hi - lo) <= 180.0)[..., None]
+        cover = torch.where(narrow, (bins >= lo_i) & (bins < hi_i),
+                            (bins < lo_i) | (bins >= hi_i))          # (B, N, 360)
+        slots = torch.arange(n, device=dev)
+        occluder = valid & (slots[None] != target[:, None]) & (w < 1.0 - FREE_EPS)
 
-    admitted = torch.zeros(B, n, dtype=torch.bool, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    result = torch.zeros(B, device=dev)
-    ones = torch.ones_like(cover, dtype=w.dtype)
-    for _ in range(n + 1):
-        act = occluder & ~admitted
-        contrib = torch.where(act[..., None] & cover, w[..., None], ones)
-        av = torch.prod(contrib, dim=1)                          # (B, 360)
-        all_ok = av.amin(dim=1) >= VALUE_THRESHOLD
-        found, mid = _select_free_window(av >= 1.0 - FREE_EPS)
-        new_result = torch.where(
-            done, result,
-            torch.where(all_ok, torch.zeros_like(result),
-                        torch.where(found, mid, result)))
-        new_done = done | all_ok | found
-        rem = occluder & ~admitted
-        wmax = torch.where(rem, w, torch.full_like(w, -math.inf)).amax(dim=1)
-        admit_now = rem & (torch.abs(w - wmax[:, None]) < 0.001)
-        admitted = torch.where(new_done[:, None], admitted, admitted | admit_now)
-        result, done = new_result, new_done
-    return position, torch.deg2rad(result)
+        admitted = torch.zeros(B, n, dtype=torch.bool, device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        result = torch.zeros(B, device=dev)
+        ones = torch.ones_like(cover, dtype=w.dtype)
+        for _ in range(n + 1):
+            act = occluder & ~admitted
+            contrib = torch.where(act[..., None] & cover, w[..., None], ones)
+            av = torch.prod(contrib, dim=1)                          # (B, 360)
+            all_ok = av.amin(dim=1) >= VALUE_THRESHOLD
+            found, mid = _select_free_window(av >= 1.0 - FREE_EPS)
+            new_result = torch.where(
+                done, result,
+                torch.where(all_ok, torch.zeros_like(result),
+                            torch.where(found, mid, result)))
+            new_done = done | all_ok | found
+            rem = occluder & ~admitted
+            wmax = torch.where(rem, w, torch.full_like(w, -math.inf)).amax(dim=1)
+            admit_now = rem & (torch.abs(w - wmax[:, None]) < 0.001)
+            admitted = torch.where(new_done[:, None], admitted, admitted | admit_now)
+            result, done = new_result, new_done
+        return position, torch.deg2rad(result)

@@ -64,6 +64,7 @@ from smg_tpu_torch.models.affordance import (
 from smg_tpu_torch.physics.state import N_SLOTS, _Batched
 from smg_tpu_torch.policy.arbitrate import ACTION_GRASP, ACTION_SUCTION
 from smg_tpu_torch.train import losses
+from smg_tpu_torch.utils import profiling
 
 _PI, _PJ = np.triu_indices(N_SLOTS, k=1)
 N_PAIRS = int(_PI.shape[0])
@@ -127,6 +128,7 @@ class Trainer:
         self.target = copy.deepcopy(self.model).requires_grad_(False)
         self.opt = self.new_optimizer()
         self.reducer = None   # parallel/sharded.py's Reducer, over > 1 rank
+        self._useful_by_n = None   # useful trunk images by valid objects, made when counted
 
     def new_optimizer(self) -> torch.optim.Adam:
         """optax.adam's update: lr * m_hat / (sqrt(v_hat) + eps), no decay."""
@@ -165,9 +167,13 @@ class Trainer:
     def _score_eval(self, net: AffordanceNet, scene_img, mask_imgs, style: int):
         """Eval scores (B, M, num_out): the kernels' path (score_eval) or the
         module forward (score), as TrainConfig.fast_eval resolves."""
-        if self.use_fast_eval:
-            return net.score_eval(scene_img, mask_imgs, style)
-        return net.score(scene_img, mask_imgs, style)
+        with profiling.span("score_eval", style=style):
+            if profiling.enabled():
+                profiling.count("trunk_images", math.prod(scene_img.shape[:-3])
+                                + mask_imgs.shape[0] * mask_imgs.shape[1])
+            if self.use_fast_eval:
+                return net.score_eval(scene_img, mask_imgs, style)
+            return net.score(scene_img, mask_imgs, style)
 
     def _postprocess(self, out: torch.Tensor) -> torch.Tensor:
         """(..., num_out) -> (..., 1): P(class 0) for reactive, raw Q
@@ -192,42 +198,61 @@ class Trainer:
         """Score scenes: (C, 224, 224) masked depth, (C, N, 224, 224)
         masks, (C, N) valid (trainer.py:282-358): grasp and suction at
         each of the R rotations, ETS pairs at rotation 0 (:325)."""
-        cfg = self.cfg
-        model = self.model
-        C = scene_depth.shape[0]
-        scene_img = self._prep(scene_depth)                     # (C, S, S, 3)
-        scene_rot = self._rotated_scenes(scene_img)             # (C, R, S, S, 3)
-        obj_ins = self._prep(scene_depth[:, None] * masks)      # (C, N, S, S, 3)
-        gra_conf, suc_conf = (
-            self._postprocess(self._score_eval(model, scene_rot, obj_ins, s))[..., 0]
-            for s in (STYLE_GRASP, STYLE_SUCTION))              # (C, N, R)
-        gs_conf = torch.full((C, N_SLOTS, N_SLOTS), -100.0,
-                             device=scene_depth.device)
-        if cfg.is_ets:
-            pi = torch.as_tensor(_PI, device=masks.device)
-            pj = torch.as_tensor(_PJ, device=masks.device)
-            pair_depths = scene_depth[:, None] * (masks[:, pi] | masks[:, pj])
-            pair_ins = self._prep(pair_depths)                  # (C, P, S, S, 3)
-            o = self._score_eval(model, scene_img, pair_ins, STYLE_ETS)
-            gs_conf[:, pi, pj] = self._postprocess(o)[..., 0]
-        neg = torch.full_like(gra_conf, -1e9)
-        return SceneScores(
-            gra_conf=torch.where(valid[..., None], gra_conf, neg),
-            suc_conf=torch.where(valid[..., None], suc_conf, neg),
-            gs_conf=gs_conf,
-        )
+        with profiling.span("score_scene"):
+            if profiling.enabled():
+                self._count_useful(valid)
+            cfg = self.cfg
+            model = self.model
+            C = scene_depth.shape[0]
+            scene_img = self._prep(scene_depth)                     # (C, S, S, 3)
+            scene_rot = self._rotated_scenes(scene_img)             # (C, R, S, S, 3)
+            obj_ins = self._prep(scene_depth[:, None] * masks)      # (C, N, S, S, 3)
+            gra_conf, suc_conf = (
+                self._postprocess(self._score_eval(model, scene_rot, obj_ins, s))[..., 0]
+                for s in (STYLE_GRASP, STYLE_SUCTION))              # (C, N, R)
+            gs_conf = torch.full((C, N_SLOTS, N_SLOTS), -100.0,
+                                 device=scene_depth.device)
+            if cfg.is_ets:
+                pi = torch.as_tensor(_PI, device=masks.device)
+                pj = torch.as_tensor(_PJ, device=masks.device)
+                pair_depths = scene_depth[:, None] * (masks[:, pi] | masks[:, pj])
+                pair_ins = self._prep(pair_depths)                  # (C, P, S, S, 3)
+                o = self._score_eval(model, scene_img, pair_ins, STYLE_ETS)
+                gs_conf[:, pi, pj] = self._postprocess(o)[..., 0]
+            neg = torch.full_like(gra_conf, -1e9)
+            return SceneScores(
+                gra_conf=torch.where(valid[..., None], gra_conf, neg),
+                suc_conf=torch.where(valid[..., None], suc_conf, neg),
+                gs_conf=gs_conf,
+            )
+
+    def _count_useful(self, valid) -> None:
+        """Count the trunk images that a chunk's valid objects need
+        (`trunk_images_useful`, on the card; _score_eval counts those
+        sent): per scene with n valid objects, the R scene images of grasp
+        and of suction if n > 0, the ETS scene image if a pair exists, 2n
+        object images and the n(n-1)/2 pair images."""
+        if self._useful_by_n is None:
+            n = torch.arange(N_SLOTS + 1, device=valid.device)
+            useful = 2 * self.cfg.model.num_rotations * (n > 0) + 2 * n
+            if self.cfg.is_ets:
+                pairs = n * (n - 1) // 2
+                useful = useful + (pairs > 0) + pairs
+            self._useful_by_n = useful
+        profiling.count("trunk_images_useful", self._useful_by_n[valid.sum(dim=1)].sum())
 
     def score_scene_batch(self, state: TrainerState, scene_depths, masks,
                           valid) -> SceneScores:
         """Batched scoring over scenes in chunks of cfg.scene_chunk."""
         del state
-        B = scene_depths.shape[0]
-        step = max(1, min(self.cfg.scene_chunk, B))
-        parts = [self.score_scene(scene_depths[i:i + step], masks[i:i + step],
-                                  valid[i:i + step])
-                 for i in range(0, B, step)]
-        return SceneScores(*(torch.cat([getattr(p, f) for p in parts])
-                             for f in ("gra_conf", "suc_conf", "gs_conf")))
+        with profiling.span("score_scene_batch"):
+            B = scene_depths.shape[0]
+            step = max(1, min(self.cfg.scene_chunk, B))
+            parts = [self.score_scene(scene_depths[i:i + step], masks[i:i + step],
+                                      valid[i:i + step])
+                     for i in range(0, B, step)]
+            return SceneScores(*(torch.cat([getattr(p, f) for p in parts])
+                                 for f in ("gra_conf", "suc_conf", "gs_conf")))
 
     def current_reward(self, choice, outcome) -> torch.Tensor:
         """Reward of the executed action (trainer.py:402-409)."""
@@ -319,55 +344,60 @@ class Trainer:
         Returns (new TrainerState, loss)."""
         cfg, model = self.cfg, self.model
         B = exp.style.shape[0]
-        if bool(((exp.style < STYLE_GRASP) | (exp.style > STYLE_ETS)).any()):
-            raise ValueError("experience styles must be 0, 1 or 2")
-        model.zero_grad(set_to_none=True)
-        loss_b = torch.zeros(B, device=self.device)
-        stats: dict = {}
-        for s, idx in self._style_groups(exp.style):
-            sd = exp.scene_depth[idx]
-            out, new = model.score_train(self._prep(sd), self._prep(sd * exp.exec_mask[idx]),
-                                         s, cfg.fast_train_conv2)
-            if cfg.method == "reactive":
-                loss_s = losses.reactive_ce(out, labels[idx])
-            else:
-                loss_s = losses.huber_q(out[:, 0], labels[idx])
-            loss_b = loss_b.index_put((idx,), loss_s)
-            for bn, mv in new.items():
-                stats.setdefault(bn, []).append((idx, mv))
-        loss_b = torch.where(exp.valid, loss_b, torch.zeros_like(loss_b))
-        n_valid = exp.valid.sum()
-        red = self.reducer
-        if red is not None:
-            n_valid = red.all_sum(n_valid)
-        loss = loss_b.sum() / n_valid.clamp(min=1)
-        loss.backward()
-        # optax steps every parameter (moment decay, step count); torch's
-        # Adam skips one whose grad is None (unused styles, a tied gs_head,
-        # a batch with no valid scene), so give those a zero gradient. It
-        # also keeps the reducer's flat buffer the same on every rank.
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if red is not None:
-            red.sum_grads(list(model.parameters()))
-            loss = red.all_sum(loss)
-        self.opt.step()
-        with torch.no_grad():
-            per_scene = {}
-            for bn, parts in stats.items():
-                per_scene[bn] = []
-                for k, old in enumerate((bn.running_mean, bn.running_var)):
-                    ps = old.expand(B, -1).clone()
-                    for idx, mean_var in parts:
-                        ps[idx] = mean_var[k]
-                    per_scene[bn].append(ps)
-            new = (red.mean_stats(model, per_scene, B) if red is not None else
-                   {bn: [ps.mean(dim=0) for ps in v] for bn, v in per_scene.items()})
-            for bn, (mean, var) in new.items():
-                bn.running_mean.copy_(mean)
-                bn.running_var.copy_(var)
-        state = TrainerState(iteration=state.iteration + 1)
-        if cfg.method == "reinforcement":
-            self.maybe_sync_target(state)
+        with profiling.span("update"):
+            if bool(((exp.style < STYLE_GRASP) | (exp.style > STYLE_ETS)).any()):
+                raise ValueError("experience styles must be 0, 1 or 2")
+            model.zero_grad(set_to_none=True)
+            loss_b = torch.zeros(B, device=self.device)
+            stats: dict = {}
+            for s, idx in self._style_groups(exp.style):
+                with profiling.span("update.forward", style=s):
+                    sd = exp.scene_depth[idx]
+                    out, new = model.score_train(self._prep(sd),
+                                                 self._prep(sd * exp.exec_mask[idx]),
+                                                 s, cfg.fast_train_conv2)
+                    if cfg.method == "reactive":
+                        loss_s = losses.reactive_ce(out, labels[idx])
+                    else:
+                        loss_s = losses.huber_q(out[:, 0], labels[idx])
+                    loss_b = loss_b.index_put((idx,), loss_s)
+                for bn, mv in new.items():
+                    stats.setdefault(bn, []).append((idx, mv))
+            loss_b = torch.where(exp.valid, loss_b, torch.zeros_like(loss_b))
+            n_valid = exp.valid.sum()
+            red = self.reducer
+            if red is not None:
+                n_valid = red.all_sum(n_valid)
+            loss = loss_b.sum() / n_valid.clamp(min=1)
+            with profiling.span("update.backward"):
+                loss.backward()
+            with profiling.span("update.adam"):
+                # optax steps every parameter (moment decay, step count); torch's
+                # Adam skips one whose grad is None (unused styles, a tied gs_head,
+                # a batch with no valid scene), so give those a zero gradient. It
+                # also keeps the reducer's flat buffer the same on every rank.
+                for p in model.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if red is not None:
+                    red.sum_grads(list(model.parameters()))
+                    loss = red.all_sum(loss)
+                self.opt.step()
+            with profiling.span("update.bn_stats"), torch.no_grad():
+                per_scene = {}
+                for bn, parts in stats.items():
+                    per_scene[bn] = []
+                    for k, old in enumerate((bn.running_mean, bn.running_var)):
+                        ps = old.expand(B, -1).clone()
+                        for idx, mean_var in parts:
+                            ps[idx] = mean_var[k]
+                        per_scene[bn].append(ps)
+                new = (red.mean_stats(model, per_scene, B) if red is not None else
+                       {bn: [ps.mean(dim=0) for ps in v] for bn, v in per_scene.items()})
+                for bn, (mean, var) in new.items():
+                    bn.running_mean.copy_(mean)
+                    bn.running_var.copy_(var)
+            state = TrainerState(iteration=state.iteration + 1)
+            if cfg.method == "reinforcement":
+                self.maybe_sync_target(state)
         return state, loss.detach()
