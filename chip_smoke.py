@@ -1744,7 +1744,7 @@ def reference_score(trainer, obs):
     masks, valid = obs.seg.masks[:1], obs.seg.valid[:1]
     x = torch.cat([trainer._prep(depth), trainer._prep(depth[:, None] * masks)[0]])
     weights = {k: t.cpu() for k, t in trainer.model.state_dict().items()}
-    got_scores = trainer.score_scene(depth, masks, valid)
+    got_scores = trainer.score_scene_batch(None, depth, masks, valid)
     v = valid[0].cpu()
     check(bool(v.any()), "reference scene has no valid object")
     for dtype in ("bfloat16", "float32"):
@@ -1768,7 +1768,7 @@ def reference_score(trainer, obs):
                 DETAIL.setdefault("reference", {})[f"{name}_trunk"] = {
                     "max_rel_err": err, "rel_l2": l2}
                 check(err < 0.05, f"{name} trunk features: err {err:.4f}")
-        want_scores = cpu.score_scene(depth.cpu(), masks.cpu(), valid.cpu())
+        want_scores = cpu.score_scene_batch(None, depth.cpu(), masks.cpu(), valid.cpu())
         for name in ("gra_conf", "suc_conf"):
             g = getattr(got_scores, name)[0, :, 0].cpu()[v]
             w = getattr(want_scores, name)[0, :, 0][v]

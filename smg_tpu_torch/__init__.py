@@ -43,9 +43,11 @@ Spans and counters (utils/profiling.py): the trainer, the policy and the
 environment's geometry record spans at their layer boundaries, and the
 trainer counts the trunk images it computes and those it needs:
 
-  score_scene_batch > score_scene > score_eval (style)   train/trainer.py
-  counter trunk_images (the images each call gets)  Trainer._score_eval
-  counter trunk_images_useful                       Trainer.score_scene
+  score_scene_batch > score_eval (style), one a packed trunk call
+                                                    train/trainer.py
+  counter trunk_images (the images each call gets)  Trainer._score_rows,
+                                                    Trainer._score_eval
+  counter trunk_images_useful (once a call)         Trainer.score_scene_batch
   update > update.forward (style), update.backward,
            update.adam, update.bn_stats             Trainer.update
   select_action                                     policy/arbitrate.py

@@ -152,6 +152,24 @@ class AffordanceNet(nn.Module):
             outs.append(out.reshape(B, M, -1))
         return torch.stack(outs, dim=2) if scene_img.dim() == 5 else outs[0]
 
+    @torch.no_grad()
+    def score_eval_rows(self, x, scene_rows, mask_rows, style: int,
+                        backend: str = "xla_fl") -> torch.Tensor:
+        """Eval scores (Q, num_out) f32 of one packed trunk call of
+        DenseNet-121 trunks: images x (N, S, S, 3), head row q pairing image
+        scene_rows[q]'s features with image mask_rows[q]'s
+        (fast_trunk.score_eval_rows)."""
+        return fast_trunk.score_eval_rows(self.trunk(style), self.head(style), x,
+                                          scene_rows, mask_rows, self.cfg.num_out, backend)
+
+    @torch.no_grad()
+    def score_rows(self, x, scene_rows, mask_rows, style: int) -> torch.Tensor:
+        """The module eval forward of score_eval_rows, its oracle and the
+        tiny trunk's: DenseNetTrunk.forward (or TinyTrunk's) and
+        AffordanceHead.forward."""
+        feats = self.trunk(style)(x)
+        return self.head(style)(fast_trunk.head_rows(feats, scene_rows, mask_rows))
+
     def score_train(self, scene_img, mask_img, style: int, conv2: str = "conv"):
         """Train-mode scores of n scenes with one exec mask each, per-image
         BatchNorm (the update's batch-1 passes, affordance.py:141-149):

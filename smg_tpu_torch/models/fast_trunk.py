@@ -340,6 +340,24 @@ def pair_features(feats: torch.Tensor, B: int, R: int) -> torch.Tensor:
     return both.reshape(B * M * R, h, w, 2 * c)
 
 
+def head_rows(feats: torch.Tensor, scene_rows: torch.Tensor,
+              mask_rows: torch.Tensor) -> torch.Tensor:
+    """Trunk features of a packed call -> the head's input (Q, h, w, 2C):
+    row q is image mask_rows[q]'s features beside image scene_rows[q]'s,
+    scene first, as pair_features lays them out."""
+    return torch.cat([feats[scene_rows], feats[mask_rows]], -1)
+
+
+def score_eval_rows(trunk, head, x: torch.Tensor, scene_rows: torch.Tensor,
+                    mask_rows: torch.Tensor, num_out: int,
+                    backend: str = "xla_fl") -> torch.Tensor:
+    """score_eval of a packed trunk call: one trunk call over any scene and
+    mask images x (N, S, S, 3), then the head on the Q rows that
+    head_rows pairs by index -> (Q, num_out) f32."""
+    feats = trunk_features_eval(trunk, x, backend)
+    return head_eval(head, head_rows(feats, scene_rows, mask_rows), num_out)
+
+
 def score_eval(trunk, head, scene_img: torch.Tensor, mask_imgs: torch.Tensor,
                num_out: int, backend: str = "xla_fl", tap=None) -> torch.Tensor:
     """Eval AffordanceNet.score (fast_trunk.py:986-1014): one trunk call

@@ -4,10 +4,16 @@
 - `score_scene_batch`: the online net's eval scores (trainer.py:282-384)
   at ModelConfig.num_rotations R rotations of the scene stream (rotation
   0 the unrotated image), including the ETS pair branch, which stays at
-  rotation 0. `scene_chunk` bounds memory only: every scoring unit of a
-  chunk of scenes goes into one trunk call per style, the R rotated scene
-  images beside the masks, each mask once (eval BatchNorm makes the
-  per-image math that of the JAX package's batch-1 units).
+  rotation 0. Only the valid objects and pairs are scored, as the SMG
+  reference scores the objects segmentation finds (main.py:158-192):
+  `valid` is read to the host once, and each style's trunk calls are
+  packed with consecutive scenes' images (a scene's R scene images and
+  one image per valid object, or its rotation-0 scene image and one per
+  valid pair) up to `Trainer.image_budget`, the largest call of
+  `scene_chunk` scenes with every slot scored, which bounds memory (eval
+  BatchNorm makes the per-image math that of the JAX package's batch-1
+  units). The entries arbitration never reads hold -1e9 (objects) and
+  -100 (pairs), PARITY dev 18.
 - `dqn_labels` (trainer.py:411-474): r + gamma Q_target(s', a*_online) with
   the future term zeroed on failure and on a cleared table; the target net
   scores (scene, exec mask) pairs grouped by style (`_eval_styled`), the
@@ -68,6 +74,61 @@ from smg_tpu_torch.utils import profiling
 
 _PI, _PJ = np.triu_indices(N_SLOTS, k=1)
 N_PAIRS = int(_PI.shape[0])
+_PAIR_SLOTS = np.stack([_PI, _PJ], 1)   # (N_PAIRS, 2): pair p's two slots
+
+
+def pack_calls(units: list, per_scene: int, budget: int) -> list:
+    """Group consecutive scenes' scoring units into trunk calls of at most
+    `budget` images. units: [(scene, (n, k) slots of its n units)], each
+    scene needing per_scene scene images beside one image per unit. A call
+    takes whole scenes while the next fits; a scene that alone exceeds the
+    budget is split into parts, each with its scene images again. ->
+    [[(scene, slots), ...] per call]."""
+    if budget <= per_scene:
+        raise ValueError(f"an image budget of {budget} holds no unit beside "
+                         f"{per_scene} scene images")
+    calls, cur, used = [], [], 0
+    for b, u in units:
+        while len(u):
+            room = budget - used - per_scene
+            if room < min(len(u), budget - per_scene):
+                calls.append(cur)
+                cur, used = [], 0
+                continue
+            part, u = u[:room], u[room:]
+            cur.append((b, part))
+            used += per_scene + len(part)
+    if cur:
+        calls.append(cur)
+    return calls
+
+
+def _call_index(call: list, per_scene: int) -> list:
+    """Host index arrays of one packed call: its scenes, each unit's scene,
+    the head's rows ordered (unit, scene image), pairing scene image rows
+    part * per_scene + r with each unit's own row after all scene images,
+    then each of the units' k slot columns (one an object, two a pair)."""
+    counts = [len(u) for _, u in call]
+    slots = np.concatenate([u for _, u in call])
+    part = np.repeat(np.arange(len(call)), counts)
+    scene_rows = (part[:, None] * per_scene + np.arange(per_scene)).reshape(-1)
+    mask_rows = np.repeat(len(call) * per_scene + np.arange(len(slots)), per_scene)
+    scenes = np.array([b for b, _ in call])
+    return [scenes, np.repeat(scenes, counts), scene_rows, mask_rows, *slots.T]
+
+
+def _to_device(index: list, device) -> list:
+    """Lists of host index arrays -> the same lists of int64 tensors on
+    `device`, through one copy that does not wait for the device's queue
+    (pinned memory, non-blocking, on a CUDA device)."""
+    arrays = [a for arrs in index for a in arrs]
+    if not arrays:
+        return []
+    flat = torch.from_numpy(np.concatenate(arrays).astype(np.int64))
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    parts = iter(torch.split(flat, [len(a) for a in arrays]))
+    return [[next(parts) for _ in arrs] for arrs in index]
 
 
 @dataclass(frozen=True)
@@ -81,6 +142,8 @@ class TrainConfig:
     adam_eps: float = 1e-8
     target_update_freq: int = 10         # main.py:450
     is_ets: bool = False
+    # Scoring's memory bound: a packed trunk call gets at most the images of
+    # this many scenes with every slot scored (Trainer.image_budget).
     scene_chunk: int = 4
     # The eval forward of scoring and labels (trainer.py:64-69, :505-515):
     # "on" the fast trunk (fast_trunk.score_eval over the kernels), "off"
@@ -128,7 +191,6 @@ class Trainer:
         self.target = copy.deepcopy(self.model).requires_grad_(False)
         self.opt = self.new_optimizer()
         self.reducer = None   # parallel/sharded.py's Reducer, over > 1 rank
-        self._useful_by_n = None   # useful trunk images by valid objects, made when counted
 
     def new_optimizer(self) -> torch.optim.Adam:
         """optax.adam's update: lr * m_hat / (sqrt(v_hat) + eps), no decay."""
@@ -175,6 +237,17 @@ class Trainer:
                 return net.score_eval(scene_img, mask_imgs, style)
             return net.score(scene_img, mask_imgs, style)
 
+    def _score_rows(self, x, scene_rows, mask_rows, style: int) -> torch.Tensor:
+        """Eval scores (Q, num_out) of one packed trunk call of the online
+        net (score_eval_rows, or the module forward score_rows, as
+        TrainConfig.fast_eval resolves)."""
+        with profiling.span("score_eval", style=style):
+            if profiling.enabled():
+                profiling.count("trunk_images", x.shape[0])
+            if self.use_fast_eval:
+                return self.model.score_eval_rows(x, scene_rows, mask_rows, style)
+            return self.model.score_rows(x, scene_rows, mask_rows, style)
+
     def _postprocess(self, out: torch.Tensor) -> torch.Tensor:
         """(..., num_out) -> (..., 1): P(class 0) for reactive, raw Q
         for reinforcement (trainer.py:360-368)."""
@@ -185,74 +258,90 @@ class Trainer:
     def _rotated_scenes(self, scene_img: torch.Tensor) -> torch.Tensor:
         """(C, S, S, 3) -> (C, R, S, S, 3): rotation r turns each scene by
         r 2 pi / R, its angle rounded once to float32 (trainer.py:305-310);
-        rotation 0 is the image itself."""
+        rotation 0 is the image itself. The angles are made on the device,
+        so no copy from the host waits for its queue."""
         R = self.cfg.model.num_rotations
         if R == 1:
             return scene_img[:, None]
-        theta = torch.tensor([r * (2.0 * math.pi / R) for r in range(R)],
-                             dtype=torch.float32, device=scene_img.device)
+        theta = (torch.arange(R, dtype=torch.float64, device=scene_img.device)
+                 * (2.0 * math.pi / R)).float()
         return aff.rotate_image_nearest(
             scene_img[:, None].expand((-1, R) + scene_img.shape[1:]), theta)
 
-    def score_scene(self, scene_depth, masks, valid) -> SceneScores:
-        """Score scenes: (C, 224, 224) masked depth, (C, N, 224, 224)
-        masks, (C, N) valid (trainer.py:282-358): grasp and suction at
-        each of the R rotations, ETS pairs at rotation 0 (:325)."""
-        with profiling.span("score_scene"):
-            if profiling.enabled():
-                self._count_useful(valid)
-            cfg = self.cfg
-            model = self.model
-            C = scene_depth.shape[0]
-            scene_img = self._prep(scene_depth)                     # (C, S, S, 3)
-            scene_rot = self._rotated_scenes(scene_img)             # (C, R, S, S, 3)
-            obj_ins = self._prep(scene_depth[:, None] * masks)      # (C, N, S, S, 3)
-            gra_conf, suc_conf = (
-                self._postprocess(self._score_eval(model, scene_rot, obj_ins, s))[..., 0]
-                for s in (STYLE_GRASP, STYLE_SUCTION))              # (C, N, R)
-            gs_conf = torch.full((C, N_SLOTS, N_SLOTS), -100.0,
-                                 device=scene_depth.device)
-            if cfg.is_ets:
-                pi = torch.as_tensor(_PI, device=masks.device)
-                pj = torch.as_tensor(_PJ, device=masks.device)
-                pair_depths = scene_depth[:, None] * (masks[:, pi] | masks[:, pj])
-                pair_ins = self._prep(pair_depths)                  # (C, P, S, S, 3)
-                o = self._score_eval(model, scene_img, pair_ins, STYLE_ETS)
-                gs_conf[:, pi, pj] = self._postprocess(o)[..., 0]
-            neg = torch.full_like(gra_conf, -1e9)
-            return SceneScores(
-                gra_conf=torch.where(valid[..., None], gra_conf, neg),
-                suc_conf=torch.where(valid[..., None], suc_conf, neg),
-                gs_conf=gs_conf,
-            )
+    @property
+    def image_budget(self) -> int:
+        """The most images one packed trunk call of score_scene_batch gets:
+        the largest call of scene_chunk scenes with every slot scored,
+        R + N_SLOTS a scene, or 1 + N_PAIRS with ETS. It bounds the memory
+        peak and every kernel's element count (ops/_build.py::check_int32)."""
+        per_scene = self.cfg.model.num_rotations + N_SLOTS
+        if self.cfg.is_ets:
+            per_scene = max(per_scene, 1 + N_PAIRS)
+        return max(1, self.cfg.scene_chunk) * per_scene
 
-    def _count_useful(self, valid) -> None:
-        """Count the trunk images that a chunk's valid objects need
-        (`trunk_images_useful`, on the card; _score_eval counts those
-        sent): per scene with n valid objects, the R scene images of grasp
-        and of suction if n > 0, the ETS scene image if a pair exists, 2n
-        object images and the n(n-1)/2 pair images."""
-        if self._useful_by_n is None:
-            n = torch.arange(N_SLOTS + 1, device=valid.device)
-            useful = 2 * self.cfg.model.num_rotations * (n > 0) + 2 * n
-            if self.cfg.is_ets:
-                pairs = n * (n - 1) // 2
-                useful = useful + (pairs > 0) + pairs
-            self._useful_by_n = useful
-        profiling.count("trunk_images_useful", self._useful_by_n[valid.sum(dim=1)].sum())
+    def _useful_images(self, n: np.ndarray) -> int:
+        """The trunk images that scenes with n valid objects need: the R
+        scene images of grasp and of suction if n > 0, the ETS scene image
+        if a pair exists, 2n object images and the n(n-1)/2 pair images."""
+        useful = 2 * self.cfg.model.num_rotations * (n > 0) + 2 * n
+        if self.cfg.is_ets:
+            pairs = n * (n - 1) // 2
+            useful = useful + (pairs > 0) + pairs
+        return int(useful.sum())
+
+    def _call_images(self, scene_depths, masks, scenes, unit_scene, slots,
+                     per_scene: int) -> torch.Tensor:
+        """One packed call's trunk images, made through one _prep: the scene
+        images of `scenes`, per_scene (R > 1) rotations each, then one image
+        per unit, its scene's depth under the union of its `slots` masks
+        (one slot an object, two a pair)."""
+        unit_mask = masks[unit_scene, slots[0]]
+        for s in slots[1:]:
+            unit_mask = unit_mask | masks[unit_scene, s]
+        x = self._prep(torch.cat([scene_depths[scenes], scene_depths[unit_scene] * unit_mask]))
+        if per_scene > 1:
+            G = scenes.shape[0]
+            x = torch.cat([self._rotated_scenes(x[:G]).flatten(0, 1), x[G:]])
+        return x
 
     def score_scene_batch(self, state: TrainerState, scene_depths, masks,
                           valid) -> SceneScores:
-        """Batched scoring over scenes in chunks of cfg.scene_chunk."""
+        """Score B scenes: (B, 224, 224) masked depth, (B, N, 224, 224)
+        masks, (B, N) valid (trainer.py:282-358): grasp and suction of each
+        valid object at each of the R rotations, ETS of each pair of valid
+        objects at rotation 0 (:325), in packed trunk calls (pack_calls);
+        -1e9 (objects) and -100 (pairs) elsewhere. Reading `valid` is its one
+        wait for the device."""
         del state
         with profiling.span("score_scene_batch"):
-            B = scene_depths.shape[0]
-            step = max(1, min(self.cfg.scene_chunk, B))
-            parts = [self.score_scene(scene_depths[i:i + step], masks[i:i + step],
-                                      valid[i:i + step])
-                     for i in range(0, B, step)]
-            return SceneScores(*(torch.cat([getattr(p, f) for p in parts])
-                                 for f in ("gra_conf", "suc_conf", "gs_conf")))
+            cfg, R = self.cfg, self.cfg.model.num_rotations
+            B, dev = scene_depths.shape[0], scene_depths.device
+            ok = valid.cpu().numpy()
+            n = ok.sum(axis=1)
+            if profiling.enabled():
+                profiling.count("trunk_images_useful", self._useful_images(n))
+            gra_conf = torch.full((B, N_SLOTS, R), -1e9, device=dev)
+            suc_conf = torch.full((B, N_SLOTS, R), -1e9, device=dev)
+            gs_conf = torch.full((B, N_SLOTS, N_SLOTS), -100.0, device=dev)
+            objects = pack_calls([(b, np.flatnonzero(ok[b])[:, None]) for b in range(B)
+                                  if n[b]], R, self.image_budget)
+            pairs = []
+            if cfg.is_ets:
+                pair_ok = ok[:, _PI] & ok[:, _PJ]
+                pairs = pack_calls([(b, _PAIR_SLOTS[pair_ok[b]]) for b in range(B)
+                                    if pair_ok[b].any()], 1, self.image_budget)
+            index = _to_device([_call_index(c, R) for c in objects]
+                               + [_call_index(c, 1) for c in pairs], dev)
+            for scenes, unit_scene, srow, mrow, slot in index[:len(objects)]:
+                x = self._call_images(scene_depths, masks, scenes, unit_scene, (slot,), R)
+                for style, conf in ((STYLE_GRASP, gra_conf), (STYLE_SUCTION, suc_conf)):
+                    out = self._postprocess(self._score_rows(x, srow, mrow, style))
+                    conf[unit_scene, slot] = out[:, 0].reshape(-1, R)
+            for scenes, unit_scene, srow, mrow, pi, pj in index[len(objects):]:
+                x = self._call_images(scene_depths, masks, scenes, unit_scene, (pi, pj), 1)
+                out = self._postprocess(self._score_rows(x, srow, mrow, STYLE_ETS))
+                gs_conf[unit_scene, pi, pj] = out[:, 0]
+            return SceneScores(gra_conf=gra_conf, suc_conf=suc_conf, gs_conf=gs_conf)
 
     def current_reward(self, choice, outcome) -> torch.Tensor:
         """Reward of the executed action (trainer.py:402-409)."""

@@ -12,8 +12,8 @@
   execution, not its enqueue (the JAX version calls block_until_ready
   there).
 - The recorder: `span(name, **attrs)` and `count(name, n)`, placed at the
-  program's layer boundaries (Trainer.score_scene_batch, score_scene and
-  _score_eval; Trainer.update's forward per style, backward, Adam and
+  program's layer boundaries (Trainer.score_scene_batch and its trunk
+  calls, _score_rows and _score_eval; Trainer.update's forward per style, backward, Adam and
   BatchNorm statistics; select_action; compute_geometry with PE and OO).
   It is off until code calls `enable()`; no environment variable or flag
   turns it on. Off, `span` returns one shared no-op context and `count`

@@ -148,9 +148,10 @@ def test_both_clocks_within_a_millisecond(recording):
 
 
 def test_scoring_tree_and_image_counts(recording):
-    """ceil(B / scene_chunk) score_scene spans under one score_scene_batch,
-    each with one score_eval per style; every image sent to a trunk
-    counted, and the useful ones as smgbench/bounds.py counts them."""
+    """One score_scene_batch span whose children are the packed trunk
+    calls, one score_eval each (grasp and suction per object call, then
+    the ETS calls); every image sent to a trunk counted, and the useful
+    ones as smgbench/bounds.py counts them."""
     t = _trainer()
     depth, masks, valid = _scenes()
     profiling.reset()
@@ -159,29 +160,24 @@ def test_scoring_tree_and_image_counts(recording):
     spans = profiling.spans()
     root = spans[0]
     assert root.name == "score_scene_batch" and root.parent is None
-    chunks = [s for s in spans if s.name == "score_scene"]
-    assert len(chunks) == math.ceil(B / CHUNK)
-    assert all(c.parent == root.id and c.root == root.id for c in chunks)
-    for c in chunks:
-        kids = [s for s in spans if s.parent == c.id]
-        assert [(k.name, k.attrs) for k in kids] == [
-            ("score_eval", {"style": 0}), ("score_eval", {"style": 1}),
-            ("score_eval", {"style": 2})]
-    assert len(spans) == 1 + len(chunks) * 4
-    # 93 images a scene (1 + 12 grasp, 1 + 12 suction, 1 + 66 ETS), each
-    # trunk call's own; useful: 3 objects 2 + 1 + 6 + 3, 1 object 2 + 2,
-    # none 0.
-    assert profiling.counters() == {"trunk_images": 93 * B, "trunk_images_useful": 16}
-    assert [int(c.counts["trunk_images_useful"]) for c in chunks] == [16, 0]
-    assert [s.counts["trunk_images"] for s in spans if s.name == "score_eval"] == [
-        26, 26, 134, 13, 13, 67]
-    # The images sent, not a formula: five slots and no ETS send 2 (1 + 5)
-    # a scene; the first scene's three objects need 2 + 6.
+    assert [(s.name, s.attrs) for s in spans[1:]] == [
+        ("score_eval", {"style": 0}), ("score_eval", {"style": 1}),
+        ("score_eval", {"style": 2})]
+    assert all(s.parent == root.id and s.root == root.id for s in spans[1:])
+    # Only the valid objects' and pairs' images are sent: 3 objects 2 + 1
+    # + 6 + 3, 1 object 2 + 2, none 0. Grasp and suction each get both
+    # scenes' images (1 + 3, 1 + 1) in one call of the image budget
+    # (CHUNK (1 + 66) = 134), ETS the first scene's (1 + 3).
+    assert profiling.counters() == {"trunk_images": 16, "trunk_images_useful": 16}
+    assert root.counts == {"trunk_images_useful": 16}
+    assert [s.counts["trunk_images"] for s in spans[1:]] == [6, 6, 4]
+    # The images sent, not a formula: five slots and no ETS send the first
+    # scene's 1 + 3 a style; the second scene's one object is slot 5.
     t = _trainer(ets=False)
     profiling.reset()
     with torch.no_grad():
         t.score_scene_batch(None, depth, masks[:, :5], valid[:, :5])
-    assert profiling.counters() == {"trunk_images": 12 * B, "trunk_images_useful": 8}
+    assert profiling.counters() == {"trunk_images": 8, "trunk_images_useful": 8}
 
 
 def test_update_tree_in_order(recording):

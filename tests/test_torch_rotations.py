@@ -9,8 +9,9 @@ the CPU, and the port's copies of utils/vis.py's helpers.
   (at most MAX_ROT_PIXELS differing, counted; ROADMAP §3).
 - With shallow float32 DenseNets at input 224 (test_torch_parity_helpers'
   make_trainers, R = 3, the head untied, ETS on): score_scene_batch (every
-  rotation of grasp and suction, the ETS pairs at rotation 0) to 1e-4 of
-  the largest live score, as tests/test_torch_loop.py holds R = 1; its
+  rotation of grasp and suction, the ETS pairs of valid objects at
+  rotation 0) to 1e-4 of the largest live score, as
+  tests/test_torch_loop.py holds R = 1; its
   rotation 0 against an R = 1 port trainer on the same weights;
   dqn_labels with exploit rotations in [0, R) to 1e-4 of the largest
   label; _eval_styled(rotations=) on all three styles and rotations to
@@ -144,8 +145,11 @@ def test_score_scene_batch(rot):
     for k in ("gra_conf", "suc_conf"):
         assert getattr(got, k).shape == (B, N, R)
         print(k, "gap", _live_close(getattr(got, k).numpy(), want[k]))
-    pairs = want["gs_conf"] > -100.0
-    assert pairs.any()
+    # The pairs of valid objects: the port scores only those (PARITY dev 18).
+    ii, jj = np.triu_indices(N, k=1)
+    pairs = np.zeros((B, N, N), bool)
+    pairs[:, ii, jj] = valid[:, ii] & valid[:, jj]
+    assert pairs.any() and (want["gs_conf"][pairs] > -100.0).all()
     print("gs_conf gap", _live_close(got.gs_conf.numpy()[pairs], want["gs_conf"][pairs]))
     # Different rotations score differently; rotation 0 is the R = 1 scoring.
     assert np.abs(np.diff(want["gra_conf"][valid], axis=-1)).max() > 1e-3
